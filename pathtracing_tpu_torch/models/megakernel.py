@@ -1,0 +1,156 @@
+"""Megakernel path-tracing integrator (the JAX package's
+``models/megakernel.py``, block mode): every bounce of a sample over a
+block of image rows, as one batched wave per bounce.
+
+Forward path tracing with emissive-surface lighting, NEE with MIS,
+cosine/GGX BSDF sampling and Russian roulette from ``rr_start_depth``.
+Pixel and sample ids are global, so any chunking of the rows gives the
+same per-pixel results bit for bit. The scattered-rows and
+scattered-pixels modes of the JAX engine (the adaptive schedulers' waves)
+are not ported yet (ROADMAP queue A item 17).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pathtracing_tpu_torch.models import scene as scene_mod
+from pathtracing_tpu_torch.models import shading
+from pathtracing_tpu_torch.ops import binning, rng
+from pathtracing_tpu_torch.utils.config import RenderConfig
+
+# Ceiling on rays per bounce wave. The JAX package's 1 << 18 exists for a
+# TPU tile-padding reason; on an 80 GB card a whole 1920x1080 frame
+# (2,073,600 rays) fits one wave. Chunking never changes a pixel's result.
+MAX_WAVE_RAYS = 1 << 21
+
+# Depths at which surviving paths are compacted live-first (a stable
+# 2-bin permutation of the per-path state). Waves after it trace only
+# the live prefix — dead lanes' radiance never changes again — and the
+# inverse permutation restores pixel order at the end: a pure
+# reordering, so per-path results are unchanged.
+COMPACT_DEPTHS = (3,)
+
+
+def _chunking(block_rows: int, w: int):
+    """(chunk_rows, n_chunks): the largest divisor of ``block_rows`` whose
+    wave fits MAX_WAVE_RAYS, or ceil-splitting at the cap (padded last
+    chunk) when no divisor reaches half the cap — the JAX rule."""
+    if block_rows * w <= MAX_WAVE_RAYS:
+        return block_rows, 1
+    cap = max(1, MAX_WAVE_RAYS // w)
+    divisor = max(c for c in range(1, cap + 1) if block_rows % c == 0)
+    chunk_rows = divisor if 2 * divisor >= cap else cap
+    return chunk_rows, -(-block_rows // chunk_rows)
+
+
+def render_samples(scene, camera, config: RenderConfig, sample_start: int,
+                   n_samples: int, seed: int, row_start: int = 0,
+                   block_rows=None, stats=None):
+    """Sum of ``n_samples`` radiance samples per pixel over rows
+    [row_start, row_start + block_rows) (default the whole image):
+    (block_rows, W, 3) float32.
+
+    ``sample_start`` is the global sample counter, so progressive steps
+    continue the exact RNG sequence; sample ``i`` of this call is global
+    sample ``sample_start + i``. ``stats`` (optional dict)
+    accumulates ``segments`` (rays entering each bounce's closest-hit
+    query) and ``shadow_segments`` (NEE shadow rays) as device tensors."""
+    h, w = config.height, config.width
+    block_rows = h if block_rows is None else block_rows
+    chunk_rows, n_chunks = _chunking(block_rows, w)
+    device = scene.tri_v0.device
+    traversal = config.resolve_traversal(scene)
+    ys = torch.arange(chunk_rows, dtype=torch.int64, device=device)[:, None]
+    xs = torch.arange(w, dtype=torch.int64, device=device)[None, :]
+
+    accum = torch.zeros((block_rows, w, 3), dtype=torch.float32,
+                        device=device)
+    for sample_ofs in range(n_samples):
+        sample_idx = sample_start + sample_ofs
+        for ci in range(n_chunks):
+            r0 = ci * chunk_rows
+            pixel_index = ((ys + row_start + r0) * w + xs).reshape(-1)
+            radiance = _trace_pixels(scene, camera, config, traversal,
+                                     pixel_index, sample_idx, seed, stats)
+            radiance = radiance.reshape(chunk_rows, w, 3)
+            if config.clamp > 0.0:
+                radiance = torch.clamp(radiance, max=config.clamp)
+            # Padded rows of a ceil-split last chunk are dropped here.
+            n = min(chunk_rows, block_rows - r0)
+            accum[r0:r0 + n] += radiance[:n]
+    return accum
+
+
+def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
+                  pixel_index, sample_idx: int, seed: int, stats=None):
+    """Per-path radiance ((R, 3)) for one wave of global pixel ids."""
+    keys, origin, direction = shading.camera_sample(
+        camera, config, seed, pixel_index, sample_idx
+    )
+    ld_nee = ld_scatter = None
+    if config.sampler == "ld":
+        # First-vertex stratified draws, computed once per sample.
+        pick = rng.ld_scalar(seed, pixel_index, sample_idx, rng.STREAM_NEE)
+        ld_nee = torch.stack(
+            [pick, *rng.ld_pair(seed, pixel_index, sample_idx,
+                                rng.STREAM_NEE)], dim=1)
+        ld_scatter = torch.stack(
+            rng.ld_pair(seed, pixel_index, sample_idx, rng.STREAM_SCATTER),
+            dim=1)
+
+    n = pixel_index.shape[0]
+    dev = pixel_index.device
+    # (radiance, throughput, o, d, active, prev_pdf, prev_nee)
+    state = (
+        torch.zeros((n, 3), dtype=torch.float32, device=dev),
+        torch.ones((n, 3), dtype=torch.float32, device=dev),
+        origin, direction,
+        torch.ones(n, dtype=torch.bool, device=dev),
+        torch.zeros(n, dtype=torch.float32, device=dev),
+        torch.zeros(n, dtype=torch.bool, device=dev),
+    )
+    per_path = [keys, ld_nee, ld_scatter]
+
+    def bounces(state, per_path, start, stop):
+        ks, ldn, lds = per_path
+        for depth in range(start, stop):
+            out = shading.bounce_batch(
+                scene, state[2], state[3], ks, depth, state[0], state[1],
+                state[4], config.rr_start_depth, config.background,
+                traversal, nee=config.nee, prev_pdf=state[5],
+                prev_nee=state[6], ld_nee=ldn, ld_scatter=lds,
+                nee_candidates=config.nee_candidates,
+                return_shadow_count=True,
+            )
+            if stats is not None:
+                stats["segments"] = stats.get("segments", 0) + state[4].sum()
+                stats["shadow_segments"] = (stats.get("shadow_segments", 0)
+                                            + out[7])
+            state = out[:7]
+        return state
+
+    dnf_route = (scene_mod.uses_dnf(scene)
+                 and traversal in ("cluster_cuda", "cluster_torch"))
+    depths = [d for d in sorted(COMPACT_DEPTHS)
+              if dnf_route and config.max_depth >= d + 2]
+    start = 0
+    # Per compaction: (inverse permutation, radiance at that depth, the
+    # dead lanes' indices).
+    undo = []
+    for d in depths:
+        state = bounces(state, per_path, start, d)
+        perm, inv = binning.binning_perm(
+            torch.where(state[4], 0, 1).to(torch.int32)
+        )
+        n_live = int(state[4].sum())
+        undo.append((inv, state[0], perm[n_live:]))
+        keep = perm[:n_live]
+        state = tuple(a[keep] for a in state)
+        per_path = [None if a is None else a[keep] for a in per_path]
+        start = d
+    radiance = bounces(state, per_path, start, config.max_depth)[0]
+    for inv, full_radiance, dead in reversed(undo):
+        # Dead lanes keep the radiance they had at the compaction.
+        radiance = torch.cat([radiance, full_radiance[dead]])[inv]
+    return radiance

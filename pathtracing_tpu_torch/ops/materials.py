@@ -1,0 +1,188 @@
+"""Branchless BSDF table (the JAX package's ``ops/materials.py``): the
+Lambertian, checker, metal, GGX, dielectric and emissive lobes that the
+flagship path reaches. Every lobe is evaluated for every ray and the
+result selected by material type.
+
+Materials are an SoA table indexed by ``mat_id``:
+  mat_type (K,) int32, mat_albedo (K,3) f32, mat_param (K,) f32
+  (metal fuzz / GGX alpha / dielectric IOR), mat_emit (K,3) f32.
+
+The rough dielectric, dispersion, principled and anisotropic lobes are
+not ported yet (ROADMAP queue A item 11); ``scatter`` raises when asked
+for them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pathtracing_tpu_torch.ops import linalg, sampling
+
+TYPE_LAMBERTIAN = 0
+TYPE_METAL = 1
+TYPE_DIELECTRIC = 2
+TYPE_EMISSIVE = 3
+TYPE_CHECKER = 4
+TYPE_GGX = 5
+TYPE_ROUGH_DIELECTRIC = 6
+TYPE_PRINCIPLED = 7
+
+INV_PI = 0.3183098861837907
+GGX_MIN_ALPHA = 1e-3
+
+
+def is_diffuse_type(mat_type):
+    """Types shaded as Lambertian (cosine lobe + NEE-eligible)."""
+    return (mat_type == TYPE_LAMBERTIAN) | (mat_type == TYPE_CHECKER)
+
+
+def is_nee_type(mat_type):
+    """Types with a finite BSDF pdf — eligible for light sampling."""
+    return (is_diffuse_type(mat_type) | (mat_type == TYPE_GGX)
+            | (mat_type == TYPE_PRINCIPLED))
+
+
+def _ggx_d(alpha2, cos_h):
+    c2 = torch.square(torch.clamp(cos_h, min=0.0))
+    denom = c2 * (alpha2 - 1.0) + 1.0
+    return alpha2 * INV_PI / torch.clamp(denom * denom, min=1e-12)
+
+
+def _smith_g1(alpha2, cos_x):
+    c = torch.clamp(cos_x, min=1e-6)
+    return 2.0 * c / (c + torch.sqrt(alpha2 + (1.0 - alpha2) * c * c))
+
+
+def _schlick5(x):
+    return torch.pow(torch.clamp(1.0 - x, 0.0, 1.0), 5.0)
+
+
+def ggx_eval(f0, alpha, normal, view, light):
+    """GGX conductor BRDF and its NDF-sampling pdf toward ``light``.
+    Returns (f (..., 3), pdf (...,)), zero outside the upper hemisphere."""
+    alpha = torch.clamp(alpha, min=GGX_MIN_ALPHA)
+    alpha2 = alpha * alpha
+    cos_v = linalg.dot(normal, view)
+    cos_l = linalg.dot(normal, light)
+    h = linalg.normalize(view + light)
+    cos_h = linalg.dot(normal, h)
+    vh = linalg.dot(view, h)
+    d = _ggx_d(alpha2, cos_h)
+    g = _smith_g1(alpha2, cos_v) * _smith_g1(alpha2, cos_l)
+    fres = f0 + (1.0 - f0) * _schlick5(vh)[..., None]
+    ok = (cos_v > 1e-6) & (cos_l > 1e-6) & (vh > 1e-6)
+    f = fres * (d * g / torch.clamp(4.0 * cos_v * cos_l, min=1e-12))[..., None]
+    pdf = d * torch.clamp(cos_h, min=0.0) / torch.clamp(4.0 * vh, min=1e-12)
+    return torch.where(ok[..., None], f, 0.0), torch.where(ok, pdf, 0.0)
+
+
+def ggx_sample_h(alpha, normal, u1, u2):
+    """GGX half-vector around ``normal``; returns (h, cos_h)."""
+    alpha = torch.clamp(alpha, min=GGX_MIN_ALPHA)
+    u1 = torch.clamp(u1, 0.0, 1.0 - 1e-6)
+    cos_h = 1.0 / torch.sqrt(1.0 + alpha * alpha * u1 / (1.0 - u1))
+    sin_h = torch.sqrt(torch.clamp(1.0 - cos_h * cos_h, min=0.0))
+    phi = 2.0 * torch.pi * u2
+    tx, ty = linalg.orthonormal_basis(normal)
+    h = ((sin_h * torch.cos(phi))[..., None] * tx
+         + (sin_h * torch.sin(phi))[..., None] * ty
+         + cos_h[..., None] * normal)
+    return h, cos_h
+
+
+def ggx_sample(alpha, normal, d_in, u1, u2):
+    """Sample a GGX half-vector and reflect; returns (d_out, cos_h, vh)."""
+    h, cos_h = ggx_sample_h(alpha, normal, u1, u2)
+    d_out = linalg.normalize(d_in - 2.0 * linalg.dot(d_in, h)[..., None] * h)
+    return d_out, cos_h, linalg.dot(-d_in, h)
+
+
+def effective_albedo(mat_type, albedo, param, emit, position):
+    """Surface color at a hit (procedural checker evaluated here)."""
+    freq = torch.clamp(param, min=1e-6)[..., None]
+    cell = torch.floor(position * freq + 0.5)
+    parity = (cell[..., 0] + cell[..., 1] + cell[..., 2]).to(torch.int32) & 1
+    checker = torch.where(parity[..., None] == 0, albedo, emit)
+    return torch.where((mat_type == TYPE_CHECKER)[..., None], checker, albedo)
+
+
+def effective_emission(mat_type, emit):
+    """Emitted radiance (zero for checker, whose emit slot is color2)."""
+    return torch.where((mat_type == TYPE_CHECKER)[..., None], 0.0, emit)
+
+
+def scatter(mat_type, albedo, param, emit, normal, d_in, front_face, u,
+            param2=None, disp=None, throughput=None, metallic=None,
+            clearcoat=None, aniso=None):
+    """Sample the BSDF for a batch of hits (branchless; see the JAX
+    ``scatter``). ``u`` is (..., 5) uniforms. Returns (d_out, attenuation,
+    scattered, pdf) with pdf 0 for delta lobes."""
+    if any(x is not None for x in (param2, disp, metallic, clearcoat, aniso)):
+        raise NotImplementedError(
+            "rough glass, dispersion, principled and anisotropic lobes are "
+            "not ported yet (ROADMAP queue A item 11)"
+        )
+    d_diffuse = sampling.cosine_hemisphere(normal, u[..., 0], u[..., 1])
+    pdf_diffuse = torch.clamp(linalg.dot(normal, d_diffuse), min=1e-6) * INV_PI
+
+    view = -d_in
+    alpha = torch.clamp(param, min=GGX_MIN_ALPHA)
+    alpha2 = alpha * alpha
+    d_ggx, cos_h, vh = ggx_sample(alpha, normal, d_in, u[..., 0], u[..., 1])
+    cos_v = linalg.dot(normal, view)
+    cos_lg = linalg.dot(normal, d_ggx)
+    ggx_ok = (cos_lg > 1e-6) & (cos_v > 1e-6) & (vh > 1e-6)
+    fres_g = albedo + (1.0 - albedo) * _schlick5(vh)[..., None]
+    g2 = _smith_g1(alpha2, cos_v) * _smith_g1(alpha2, cos_lg)
+    w_ggx = fres_g * (
+        g2 * vh / torch.clamp(cos_v * torch.clamp(cos_h, min=1e-6), min=1e-9)
+    )[..., None]
+    pdf_ggx = (_ggx_d(alpha2, cos_h) * torch.clamp(cos_h, min=0.0)
+               / torch.clamp(4.0 * vh, min=1e-9))
+
+    d_mirror = linalg.reflect(d_in, normal)
+    fuzz = param[..., None]
+    d_metal = linalg.normalize(
+        d_mirror
+        + fuzz * sampling.uniform_in_sphere(u[..., 2], u[..., 3], u[..., 4])
+    )
+    metal_ok = linalg.dot(d_metal, normal) > 0.0
+
+    ior = torch.clamp(param, min=1.0)
+    eta = torch.where(front_face, 1.0 / ior, ior)
+    cos_i = torch.clamp(-linalg.dot(d_in, normal), max=1.0)
+    sin_i = torch.sqrt(torch.clamp(1.0 - cos_i * cos_i, min=0.0))
+    cannot_refract = eta * sin_i > 1.0
+    reflect_prob = sampling.schlick_fresnel(cos_i, eta)
+    do_reflect = cannot_refract | (u[..., 2] < reflect_prob)
+    d_refract = linalg.refract(d_in, normal, eta)
+    d_dielectric = linalg.normalize(
+        torch.where(do_reflect[..., None], d_mirror, d_refract)
+    )
+
+    is_diffuse = is_diffuse_type(mat_type)
+    is_metal = mat_type == TYPE_METAL
+    is_dielectric = mat_type == TYPE_DIELECTRIC
+    is_ggx = mat_type == TYPE_GGX
+
+    d_out = torch.where(
+        is_diffuse[..., None], d_diffuse,
+        torch.where(is_metal[..., None], d_metal,
+                    torch.where(is_ggx[..., None], d_ggx, d_dielectric)),
+    )
+    attenuation = torch.where(is_ggx[..., None], w_ggx, albedo)
+    scattered = torch.where(
+        is_metal, metal_ok,
+        torch.where(is_ggx, ggx_ok, is_diffuse | is_dielectric),
+    )
+    pdf = torch.where(is_diffuse, pdf_diffuse,
+                      torch.where(is_ggx, pdf_ggx, 0.0))
+    return d_out, attenuation, scattered, pdf
+
+
+def gather(mat_table, mat_id):
+    """The 4 SoA table columns for a batch of material ids (clamped, so a
+    miss's id reads row 0; callers mask by hit validity)."""
+    mat_type, mat_albedo, mat_param, mat_emit = mat_table
+    idx = torch.clamp(mat_id, 0, mat_type.shape[0] - 1).long()
+    return mat_type[idx], mat_albedo[idx], mat_param[idx], mat_emit[idx]

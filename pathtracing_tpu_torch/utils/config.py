@@ -1,0 +1,94 @@
+"""Configuration for the port: the JAX package's ``RenderConfig`` and
+``CameraConfig`` with the same fields and defaults, plus the device rule.
+
+``resolve_traversal`` picks the hand-written CUDA cluster kernels for a
+scene on the card and their plain torch versions for a scene on the CPU.
+The JAX package's ``bvh`` and ``cluster_interpret`` modes have no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+TRAVERSALS = ("cluster_cuda", "cluster_torch")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for another device. Raises when no GPU is present and the caller did
+    not ask for the CPU — the port never falls back to the CPU quietly."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain torch path on the CPU"
+            )
+        return torch.device("cuda")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is absent")
+    return device
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraConfig:
+    """Pinhole camera with optional thin-lens defocus (the JAX package's
+    ``utils.config.CameraConfig``; only the pinhole projection and a
+    static camera are ported so far)."""
+
+    position: Tuple[float, float, float] = (0.0, 0.0, 1.0)
+    look_at: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    up: Tuple[float, float, float] = (0.0, 1.0, 0.0)
+    vfov_degrees: float = 90.0
+    aperture: float = 0.0
+    focus_distance: float = 1.0
+    projection: str = "pinhole"
+    motion_position: "Tuple[float, float, float] | None" = None
+    motion_look_at: "Tuple[float, float, float] | None" = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Per-render settings; same fields and defaults as the JAX package's
+    ``RenderConfig`` so one config can drive both packages."""
+
+    width: int = 512
+    height: int = 512
+    samples_per_pixel: int = 64
+    max_depth: int = 8
+    rr_start_depth: int = 8
+    seed: int = 0
+    samples_per_step: int = 4
+    engine: str = "megakernel"
+    background: str = "black"
+    wavefront_pool: int = 0
+    traversal: str = "auto"        # "auto" | "cluster_cuda" | "cluster_torch"
+    nee: bool = True
+    nee_candidates: int = 1
+    sampler: str = "ld"
+    clamp: float = 0.0
+    ray_sort: bool = True
+    dtype: str = "float32"
+    debug: bool = False
+
+    @property
+    def resolution(self) -> Tuple[int, int]:
+        return (self.height, self.width)
+
+    def resolve_traversal(self, scene=None) -> str:
+        """"auto" picks the CUDA kernels for a scene on the card and the
+        plain torch sweep for a scene on the CPU."""
+        if self.traversal != "auto":
+            if self.traversal not in TRAVERSALS:
+                raise ValueError(
+                    f"traversal {self.traversal!r} is not ported; expected "
+                    f"one of {TRAVERSALS}"
+                )
+            return self.traversal
+        if scene is not None and scene.tri_v0.device.type == "cuda":
+            return "cluster_cuda"
+        return "cluster_torch"

@@ -1,0 +1,215 @@
+"""Port checks (g), (h) and the engine's invariants.
+
+(g) The port imports no JAX: every module imports in a subprocess with
+    ``sys.modules["jax"] = None``, and no source line of the port or of
+    chip_smoke.py imports ``jax`` or ``pathtracing_tpu.``.
+(h) Entry points run on the card unless the caller passes ``device="cpu"``:
+    with no GPU they raise; a CUDA-route wrapper given a tensor on neither
+    the CPU nor a CUDA device raises instead of falling back.
+Engine invariants (exact, tolerance none): row chunking and live-first
+compaction leave every pixel's result unchanged; progressive steps sum
+to the single-shot render; the tonemap and PNG bytes equal the JAX
+package's.
+"""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pathtracing_tpu.utils import image as jimage
+from pathtracing_tpu_torch.models import megakernel, progressive, scenes
+from pathtracing_tpu_torch.models.scene import SceneBuilder
+from pathtracing_tpu_torch.ops import camera as tcamera
+from pathtracing_tpu_torch.ops import cluster_trace, cuda_build
+from pathtracing_tpu_torch.utils import config as tconfig
+from pathtracing_tpu_torch.utils import image as timage
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "pathtracing_tpu_torch")
+
+
+def _port_modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages([PKG],
+                                              "pathtracing_tpu_torch.")
+    )
+
+
+def test_port_imports_without_jax():
+    mods = _port_modules()
+    assert "pathtracing_tpu_torch.ops.cluster_trace" in mods
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['pathtracing_tpu'] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "assert 'jax' not in {k.split('.')[0] for k, v in "
+        "sys.modules.items() if v is not None}\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _sources():
+    for dirpath, dirs, files in os.walk(PKG):
+        # The git-ignored build directory holds compiled output only.
+        dirs[:] = [d for d in dirs if d != ".build"]
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_jax_or_reference_imports_in_source():
+    offenders = []
+    for path in _sources():
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if not re.match(r"\s*(import\s+\w|from\s+[\w.]+\s+import\b)",
+                                line):
+                    continue
+                code = line.replace("pathtracing_tpu_torch", "")
+                if re.search(r"\bjax\b", code) or "pathtracing_tpu" in code:
+                    offenders.append(f"{path}:{i}: {line.strip()}")
+    assert not offenders, offenders
+
+
+def test_cuda_sources_are_not_built_on_import():
+    assert cuda_build._LOADED == {}
+    assert sorted(os.listdir(cuda_build.CSRC)) == ["cluster_trace.cu"]
+    with open(os.path.join(ROOT, ".gitignore")) as f:
+        assert "pathtracing_tpu_torch/.build/" in f.read().split()
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", ["scene", "camera", "state", "scenes",
+                                   "device_cuda"])
+def test_entry_points_raise_without_gpu(no_gpu, entry):
+    cfg = tconfig.RenderConfig(width=8, height=8)
+    calls = {
+        "scene": lambda: SceneBuilder().build(),
+        "camera": lambda: tcamera.build_camera(scenes.CORNELL_CAMERA, 1.0),
+        "state": lambda: progressive.init_state(cfg),
+        "scenes": lambda: scenes.cornell_sphere(),
+        "device_cuda": lambda: tconfig.resolve_device("cuda"),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
+def test_entry_points_run_on_cpu_when_asked(no_gpu):
+    assert tconfig.resolve_device("cpu") == torch.device("cpu")
+    scene, cam_cfg = scenes.cornell_sphere(device="cpu")
+    assert scene.tri_v0.device.type == "cpu"
+    cfg = tconfig.RenderConfig(width=8, height=8)
+    assert cfg.resolve_traversal(scene) == "cluster_torch"
+    state = progressive.init_state(cfg, device="cpu")
+    assert state.accum.device.type == "cpu"
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    """A tensor on neither the CPU nor a CUDA device (here ``meta``) must
+    raise: the wrappers take the plain path only for CPU tensors."""
+    scene, _ = scenes.cornell_sphere(device="cpu")
+    cl = scene.clusters._replace(
+        **{f: getattr(scene.clusters, f).to("meta")
+           for f in scene.clusters._fields})
+    o = torch.zeros((4, 3), device="meta")
+    t = torch.ones(4, device="meta")
+    before = dict(cluster_trace.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        cluster_trace.trace(cl, o, o, t)
+    with pytest.raises(ValueError, match="CUDA"):
+        cluster_trace.occluded(cl, o, o, t)
+    assert cluster_trace.LAUNCHES == before
+
+
+def test_unported_traversal_modes_raise():
+    scene, _ = scenes.cornell_sphere(device="cpu")
+    with pytest.raises(ValueError, match="not ported"):
+        tconfig.RenderConfig(traversal="bvh").resolve_traversal(scene)
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    scene, cam_cfg = scenes.cornell_mesh(2, device="cpu")
+    return scene, tcamera.build_camera(cam_cfg, 1.5, device="cpu")
+
+
+def _render(mesh, **kw):
+    scene, cam = mesh
+    cfg = tconfig.RenderConfig(width=24, height=16, max_depth=6,
+                               rr_start_depth=4, **kw)
+    return megakernel.render_samples(scene, cam, cfg, sample_start=2,
+                                     n_samples=2, seed=3)
+
+
+def test_row_chunking_is_bitwise_neutral(mesh, monkeypatch):
+    ref = _render(mesh)
+    for cap in (24 * 4, 24 * 5):     # divisor chunks; ceil-split + padding
+        monkeypatch.setattr(megakernel, "MAX_WAVE_RAYS", cap)
+        assert torch.equal(_render(mesh), ref), cap
+
+
+def test_compaction_is_bitwise_neutral(mesh, monkeypatch):
+    ref = _render(mesh)
+    monkeypatch.setattr(megakernel, "COMPACT_DEPTHS", ())
+    assert torch.equal(_render(mesh), ref)
+
+
+def test_block_rows_match_full_image(mesh):
+    scene, cam = mesh
+    cfg = tconfig.RenderConfig(width=24, height=16, max_depth=4)
+    full = megakernel.render_samples(scene, cam, cfg, 0, 1, 5)
+    part = megakernel.render_samples(scene, cam, cfg, 0, 1, 5, row_start=5,
+                                     block_rows=7)
+    assert torch.equal(part, full[5:12])
+
+
+def test_progressive_steps_sum_to_render_once(mesh):
+    scene, cam = mesh
+    cfg = tconfig.RenderConfig(width=24, height=16, max_depth=4,
+                               samples_per_pixel=4, samples_per_step=2,
+                               seed=7)
+    state = progressive.init_state(cfg, device="cpu")
+    accum = state.accum
+    stats = {}
+    for _ in range(2):
+        state = progressive.render_step(state, scene, cam, cfg, stats=stats)
+    assert state.accum is accum and state.spp == 4     # updated in place
+    once = progressive.render_once(scene, cam, cfg)
+    torch.testing.assert_close(progressive.resolve(state), once,
+                               rtol=1e-6, atol=1e-6)
+    assert int(stats["segments"]) >= 24 * 16 * 4
+    assert 0 < int(stats["shadow_segments"]) <= int(stats["segments"])
+
+
+@pytest.mark.parametrize("curve", ["clip", "aces", "reinhard", "filmic"])
+def test_tonemap_and_png_match_jax(curve):
+    rs = np.random.RandomState(0)
+    img = (rs.rand(9, 13, 3) * 3.0).astype(np.float32)
+    a = np.asarray(jimage.tonemap(jnp.asarray(img), 1.3, curve))
+    b = timage.tonemap(torch.as_tensor(img), 1.3, curve).numpy()
+    # The sRGB transfer's pow may round an 8-bit code differently.
+    assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+    assert (a == b).mean() > 0.99
+    assert jimage.encode_png(b) == timage.encode_png(b)
