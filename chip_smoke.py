@@ -6,29 +6,46 @@
 Phases, in order; any failure exits non-zero:
 
   1. device  — the card's name and power limit; TF32 off.
-  2. build   — compile the port's CUDA source into the git-ignored build
-               directory.
+  2. build   — compile the port's CUDA sources into the git-ignored build
+               directory, one ``nvcc`` per source, all started together.
   3. kernels — each hand-written kernel against its plain torch version
-               on the card, on the flagship's own waves (1920x1080 camera
-               rays, one bounce wave, and the NEE shadow waves of both),
-               with every 11th lane dead and a ray count that is not a
-               multiple of the block size; then on a random triangle soup
-               past 1024 clusters (more than one shared-memory chunk of
-               cluster boxes).
-  4. render  — the flagship: cornell_mesh(6), 1920x1080, depth 8, NEE
-               with MIS, LD sampler, 1 spp per progressive step, seed 0;
+               on the card:
+               * the flat traversal pair on the flagship's own waves
+                 (1920x1080 camera rays, one bounce wave, and the NEE
+                 shadow waves of both), with every 11th lane dead and a
+                 ray count that is not a multiple of the block size; then
+                 on a random triangle soup past 1024 clusters (more than
+                 one shared-memory chunk of cluster boxes);
+               * the instanced traversal pair on the same four waves of
+                 instanced_demo, once static with material overrides, once
+                 with a motion set (a second transform per instance) at
+                 per-ray random shutter times, once with the motion set
+                 and no time given (mid-shutter); then on
+                 instanced_demo(grid=19), 5,777 expanded clusters (six
+                 shared-memory chunks of boxes), on 262,157 rays;
+               * the row gather against ``torch.index_select``, bit for
+                 bit, for the many-light scene's (288, 24) packed table
+                 and the 2,073,600 indices of a real light pick, and for
+                 awkward shapes (one row, odd widths, one index, an
+                 unaligned table, indices below 0 and past the table).
+  4. renders — the flagship (cornell_mesh(6)), instanced_demo (gradient
+               sky) and many_lights_demo, each at 1920x1080, depth 8, NEE
+               with MIS, LD sampler, 1 spp per progressive step, seed 0:
                one warm-up step and 3 timed steps through
-               ``progressive.render_step``, then ``resolve``. The kernels'
-               launch counts are set to 0 just before the timed steps and
-               read just after.
-  5. check   — the image is finite with a plausible mean, and a small
-               render (cornell_mesh(3), 64x64) through the kernels agrees
-               with the same render through the plain versions.
+               ``progressive.render_step``, then ``resolve`` and one
+               profiled step. Every kernel's launch count is set to 0 just
+               before a scene's timed steps and read just after: the
+               flagship must launch the flat pair, the instanced scene the
+               instanced pair and no flat kernel, the many-light scene the
+               gather.
+  5. check   — each image is finite with a plausible mean, and a small
+               64x64 render of each scene through the kernels agrees with
+               the same render through the plain versions.
 
-It prints one JSON line per kernel result, a ``{"kernels": [...]}`` line,
-the card's name and power limit, and as its last line
-``{"ok": true, "device": {...}}``. It imports nothing of JAX. Without a
-CUDA device, or without the package beside it, it exits non-zero and
+It prints one JSON line per kernel result, a ``{"kernels": [...]}`` line
+with all five kernels, the card's name and power limit, and as its last
+line ``{"ok": true, "device": {...}}``. It imports nothing of JAX. Without
+a CUDA device, or without the package beside it, it exits non-zero and
 prints no result.
 """
 
@@ -45,7 +62,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 WIDTH, HEIGHT, DEPTH = 1920, 1080, 8
 TIMED_STEPS = 3
-PLAIN_CHUNK = 1 << 18        # rays per chunk of the plain versions
+PLAIN_CHUNK = 1 << 18        # rays per chunk of the flat plain versions
+# The instanced plain versions pay one host round trip per expanded cluster
+# and chunk, so they take the waves in larger pieces.
+INST_PLAIN_CHUNK = 1 << 20
 KERNEL_REPS = 10             # launches averaged per kernel timing
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and HBM3 bandwidth.
@@ -60,6 +80,16 @@ CLUSTER_SIZE = 128
 # Cluster-table bytes per cluster: AABB 24, Woop 4x384x4, normal 3x128x4,
 # mat 128x4.
 WOOP_BYTES, NORMAL_BYTES, MAT_BYTES, BOX_BYTES = 6144, 1536, 512, 24
+# Float operations that take a ray into an instance's object space, counted
+# from csrc/cluster_trace_inst.cu: to_object is 6 rows x 5 mul/add; with
+# motion load_xform adds 12 lerps x 3, 9 cofactors x 3, the determinant 5,
+# guard and divide 3, 9 scalings, the translation 3 x 6.
+XFORM_OPS, MOTION_XFORM_OPS = 30, 30 + 36 + 27 + 5 + 3 + 9 + 18
+# Bytes per expanded cluster: box 24, cmap 4, xform 48; imat 4 where the
+# closest-hit kernel reads it; with motion fw0 and fw1 (96) replace xform.
+EXP_BYTES, IMAT_BYTES, MOTION_EXTRA_BYTES = 76, 4, 48
+GATHER_SHAPE = (288, 24, WIDTH * HEIGHT)   # (L, W, N) of the many-light pick
+TPU_SOURCE = "pathtracing_tpu/ops/cluster_trace.py"
 
 
 class SmokeFailure(RuntimeError):
@@ -89,16 +119,16 @@ def cuda_ms(fn, reps: int = 1):
     return start.elapsed_time(stop) / reps, out
 
 
-def in_chunks(fn, clusters, arrays, stats):
-    """Run a plain traversal over PLAIN_CHUNK-ray chunks; sums stats."""
+def in_chunks(fn, arrays, stats, chunk):
+    """Run a plain traversal ``fn(*arrays, stats=...)`` over ``chunk``-ray
+    pieces of the per-ray ``arrays``; sums the stats."""
     import torch
 
     outs = []
     n = arrays[0].shape[0]
-    for s in range(0, n, PLAIN_CHUNK):
+    for s in range(0, n, chunk):
         st = {}
-        outs.append(fn(clusters, *(a[s:s + PLAIN_CHUNK] for a in arrays),
-                       stats=st))
+        outs.append(fn(*(a[s:s + chunk] for a in arrays), stats=st))
         for k, v in st.items():
             stats[k] = stats.get(k, 0) + v
     if isinstance(outs[0], tuple):
@@ -112,28 +142,27 @@ def kill_lanes(t):
     return t
 
 
-def make_waves(scene, camera, config):
-    """The flagship's first waves at full width: camera rays, the bounce
-    wave one shading step makes of them, and the NEE shadow wave of each.
-    Returns {name: (origin, direction, cap)} with every 11th lane dead."""
+def make_waves(scene, camera, config, pix=None, bounce=True):
+    """A scene's first waves: camera rays, the bounce wave one shading
+    step makes of them, and the NEE shadow wave of each (``bounce=False``:
+    the camera wave and its shadow wave only). ``pix`` are the pixel ids
+    (default: the whole frame less 37, so the ray count is not a multiple
+    of the 128-ray block). Returns {name: (origin, direction, cap)} with
+    every 11th lane dead."""
     import torch
 
     from pathtracing_tpu_torch.models import scene as scene_mod
     from pathtracing_tpu_torch.models import shading
     from pathtracing_tpu_torch.ops import lights, linalg, rng
 
-    n = WIDTH * HEIGHT - 37          # not a multiple of the 128-ray block
     dev = scene.tri_v0.device
-    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    if pix is None:
+        pix = torch.arange(WIDTH * HEIGHT - 37, dtype=torch.int64,
+                           device=dev)
+    n = pix.shape[0]
     keys, o0, d0 = shading.camera_sample(camera, config, config.seed, pix, 0)
     big = torch.full((n,), 3.0e38, device=dev)
-    ones = torch.ones((n, 3), device=dev)
-    out = shading.bounce_batch(
-        scene, o0, d0, keys, 0, torch.zeros((n, 3), device=dev), ones,
-        torch.ones(n, dtype=torch.bool, device=dev), config.rr_start_depth,
-        config.background, "cluster_cuda", nee=True,
-    )
-    o1, d1, act1 = out[2], out[3], out[4]
+    all_live = torch.ones(n, dtype=torch.bool, device=dev)
 
     def shadow(o, d, active, depth):
         hit = scene_mod.intersect_batch(scene, o, d, "cluster_cuda",
@@ -147,13 +176,20 @@ def make_waves(scene, camera, config):
         cap = torch.where(active & hit.valid, dist * (1.0 - 1e-3), 0.0)
         return hit.position, wi_vec / dist[:, None], kill_lanes(cap)
 
-    all_live = torch.ones(n, dtype=torch.bool, device=dev)
-    return {
+    waves = {
         "camera": (o0, d0, kill_lanes(big)),
-        "bounce": (o1, d1, kill_lanes(torch.where(act1, big, 0.0))),
         "camera_shadow": shadow(o0, d0, all_live, 0),
-        "bounce_shadow": shadow(o1, d1, act1, 1),
     }
+    if bounce:
+        out = shading.bounce_batch(
+            scene, o0, d0, keys, 0, torch.zeros((n, 3), device=dev),
+            torch.ones((n, 3), device=dev), all_live, config.rr_start_depth,
+            config.background, "cluster_cuda", nee=True,
+        )
+        o1, d1, act1 = out[2], out[3], out[4]
+        waves["bounce"] = (o1, d1, kill_lanes(torch.where(act1, big, 0.0)))
+        waves["bounce_shadow"] = shadow(o1, d1, act1, 1)
+    return waves
 
 
 def make_soup(n_tris=160_000, n_rays=(1 << 18) + 13, seed=0):
@@ -187,81 +223,243 @@ def make_soup(n_tris=160_000, n_rays=(1 << 18) + 13, seed=0):
     }
 
 
-def bound_ms(stats, n_rays, n_clusters, ray_bytes):
+def make_motion_demo(seed=11):
+    """instanced_demo's field with a second, shutter-close transform per
+    instance (a seeded turn about the vertical axis and a drift of up to
+    0.4 units), given to ``add_instances(motion_transforms=...)``."""
+    import numpy as np
+
+    from pathtracing_tpu_torch.models import scenes
+    from pathtracing_tpu_torch.models.scene import SceneBuilder
+
+    b = SceneBuilder()
+    ground = b.lambertian((0.6, 0.58, 0.52))
+    b.add_quad((-14.0, 0.0, -14.0), (28.0, 0.0, 0.0), (0.0, 0.0, 28.0),
+               ground)
+    light = b.emissive((40.0, 38.0, 34.0))
+    b.add_quad((-2.0, 9.0, -6.0), (4.0, 0.0, 0.0), (0.0, 0.0, 4.0), light)
+    mats = [b.lambertian((0.70, 0.30, 0.25)),
+            b.metal((0.85, 0.85, 0.9), 0.08),
+            b.ggx((0.9, 0.7, 0.35), roughness=0.25)]
+    verts, faces = scenes.icosphere(3, 0.45)
+    ts, overrides = scenes.instanced_field(12, mats)
+    rs = np.random.default_rng(seed)
+    closes = []
+    for m in ts:
+        a = float(rs.uniform(-0.5, 0.5))
+        c, s = np.cos(a), np.sin(a)
+        turn = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        drift = rs.uniform(-0.4, 0.4, 3) * [1.0, 0.25, 1.0]
+        closes.append(np.concatenate(
+            [turn @ m[:, :3], (m[:, 3] + drift)[:, None]], axis=1))
+    b.add_instances(verts, faces, mats[0], ts, materials=overrides,
+                    motion_transforms=closes)
+    return b.build(DEVICE)
+
+
+def bound_ms(stats, n_rays, n_clusters, ray_bytes, n_exp=0, motion=False):
     """Least time for a wave: the Woop tests its rays need (each (ray,
     cluster) pair whose box the ray pierces closer than its best hit so
-    far, times the cluster's 128 triangles) over the float32 peak, or its
-    bytes (rays in, results out, cluster tables once) over HBM bandwidth,
-    whichever is larger. The slab tests of the kernel's brute-force box
-    sweep are a cost of that algorithm, not of the query, and stay out."""
-    ops = stats["cluster_evals"] * CLUSTER_SIZE * TRI_OPS
-    table = n_clusters * (BOX_BYTES + WOOP_BYTES + (
-        NORMAL_BYTES + MAT_BYTES if ray_bytes > 29 else 0))
-    nbytes = n_rays * ray_bytes + table
+    far, times the cluster's 128 triangles, plus for an instanced scene
+    the transform of the ray into that pair's object space) over the
+    float32 peak, or its bytes (rays in, results out, the prototype
+    cluster tables and the ``n_exp`` expanded-cluster rows once) over HBM
+    bandwidth, whichever is larger. The slab tests of the kernel's
+    brute-force box sweep are a cost of that algorithm, not of the query,
+    and stay out."""
+    closest = ray_bytes > 33
+    per_pair = CLUSTER_SIZE * TRI_OPS
+    if n_exp:
+        per_pair += MOTION_XFORM_OPS if motion else XFORM_OPS
+    ops = stats["cluster_evals"] * per_pair
+    table = n_clusters * (WOOP_BYTES + (
+        NORMAL_BYTES + MAT_BYTES if closest else 0))
+    if n_exp:
+        table += n_exp * (EXP_BYTES + (IMAT_BYTES if closest else 0)
+                          + (MOTION_EXTRA_BYTES if motion else 0))
+    else:
+        table += n_clusters * BOX_BYTES
+    nbytes = n_rays * (ray_bytes + (4 if motion else 0)) + table
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes"), ops, nbytes
 
 
-def check_trace(scene, wave, clusters=None):
-    """Closest-hit kernel vs trace_torch under the tie contract."""
+def check_trace(kernel, plain, wave, chunk=PLAIN_CHUNK, strict=False):
+    """A closest-hit kernel against its plain version on one wave.
+    ``kernel(*wave)`` and ``plain(*wave, stats=...)`` take the wave's
+    per-ray arrays (origin, direction, t_init[, time]). Default: the tie
+    contract (t within rtol 1e-6 on live lanes, slot equal or t tied,
+    normals within 1e-4 and materials equal where the slots agree).
+    ``strict``: t, slot and material equal on every lane and normals
+    within 1e-6 (``normal_bit_diffs`` counts the rays whose normal is not
+    bit-equal)."""
     import torch
 
-    from pathtracing_tpu_torch.ops import cluster_trace as ct
-
-    o, d, t0 = wave
-    cl = scene.clusters if clusters is None else clusters
-    ct.trace(cl, o, d, t0)                       # warm-up launch
-    ms, (tk, sk, nk, mk) = cuda_ms(lambda: ct.trace(cl, o, d, t0),
-                                   KERNEL_REPS)
+    t0 = wave[2]
+    kernel(*wave)                                # warm-up launch
+    ms, (tk, sk, nk, mk) = cuda_ms(lambda: kernel(*wave), KERNEL_REPS)
     stats = {}
     plain_ms, (tp, sp, np_, mp) = cuda_ms(
-        lambda: in_chunks(ct.trace_torch, cl, (o, d, t0), stats))
+        lambda: in_chunks(plain, wave, stats, chunk))
     live = t0 > 0
-    same_slot = sk == sp
-    tie = tk == tp
-    t_ok = torch.isclose(tk, tp, rtol=1e-6, atol=0.0) | ~live
-    slot_ok = same_slot | tie | ~live
-    hit = same_slot & live & (sp >= 0)
     n_err = (nk - np_).abs().amax(dim=1)
-    normal_ok = (n_err <= 1e-4) | ~hit
-    mat_ok = (mk == mp) | ~hit
-    bad = ~(t_ok & slot_ok & normal_ok & mat_ok)
+    if strict:
+        hit = sp >= 0
+        bad = (tk != tp) | (sk != sp) | (mk != mp) | (n_err > 1e-6)
+    else:
+        same_slot = sk == sp
+        tie = tk == tp
+        t_ok = torch.isclose(tk, tp, rtol=1e-6, atol=0.0) | ~live
+        slot_ok = same_slot | tie | ~live
+        hit = same_slot & live & (sp >= 0)
+        normal_ok = (n_err <= 1e-4) | ~hit
+        mat_ok = (mk == mp) | ~hit
+        bad = ~(t_ok & slot_ok & normal_ok & mat_ok)
     err = torch.where(live, (tk - tp).abs(), 0.0)
     return {
-        "rays": int(o.shape[0]), "live": int(live.sum()),
+        "rays": int(t0.shape[0]), "live": int(live.sum()),
         "hits": int((sp >= 0).sum()), "mismatches": int(bad.sum()),
         "max_abs_err": float(err.max()),
         "max_normal_err": float(torch.where(hit, n_err, 0.0).max()),
+        "normal_bit_diffs": int((hit & (n_err > 0)).sum()),
         "ms": ms, "plain_ms": plain_ms, "stats": stats,
     }
 
 
-def check_occluded(scene, wave, clusters=None):
-    """Any-hit kernel vs occluded_torch: occlusion equal."""
-    from pathtracing_tpu_torch.ops import cluster_trace as ct
-
-    o, d, cap = wave
-    cl = scene.clusters if clusters is None else clusters
-    ct.occluded(cl, o, d, cap)                   # warm-up launch
-    ms, occ_k = cuda_ms(lambda: ct.occluded(cl, o, d, cap), KERNEL_REPS)
+def check_occluded(kernel, plain, wave, chunk=PLAIN_CHUNK):
+    """An any-hit kernel against its plain version: occlusion equal."""
+    cap = wave[2]
+    kernel(*wave)                                # warm-up launch
+    ms, occ_k = cuda_ms(lambda: kernel(*wave), KERNEL_REPS)
     stats = {}
-    plain_ms, occ_p = cuda_ms(
-        lambda: in_chunks(ct.occluded_torch, cl, (o, d, cap), stats))
+    plain_ms, occ_p = cuda_ms(lambda: in_chunks(plain, wave, stats, chunk))
     bad = occ_k != occ_p
     return {
-        "rays": int(o.shape[0]), "live": int((cap > 0).sum()),
+        "rays": int(cap.shape[0]), "live": int((cap > 0).sum()),
         "occluded": int(occ_p.sum()), "mismatches": int(bad.sum()),
         "max_abs_err": float(bad.float().max()),
         "ms": ms, "plain_ms": plain_ms, "stats": stats,
     }
 
 
-def profile_step(step):
-    """Device time of one flagship step by kernel, from torch.profiler:
-    the two traversal kernels' share, the rest (plain torch: RNG, shading,
-    sampling), and the device's busy share of the step's wall time."""
+def flat_fns(clusters):
+    """(closest-hit kernel, its plain version, any-hit kernel, its plain
+    version) of a flat ClusterSet, as functions of a wave's arrays."""
+    from pathtracing_tpu_torch.ops import cluster_trace as ct
+
+    return (
+        lambda o, d, t: ct.trace(clusters, o, d, t),
+        lambda o, d, t, stats: ct.trace_torch(clusters, o, d, t,
+                                              stats=stats),
+        lambda o, d, t: ct.occluded(clusters, o, d, t),
+        lambda o, d, t, stats: ct.occluded_torch(clusters, o, d, t,
+                                                 stats=stats),
+    )
+
+
+def inst_fns(clusters, inst):
+    """As ``flat_fns`` for an instanced scene; a wave may carry a fourth
+    array, the per-ray shutter time."""
+    from pathtracing_tpu_torch.ops import cluster_trace as ct
+
+    return (
+        lambda o, d, t, tm=None: ct.trace_inst(clusters, inst, o, d, t,
+                                               time=tm),
+        lambda o, d, t, tm=None, stats=None: ct.trace_inst_torch(
+            clusters, inst, o, d, t, time=tm, stats=stats),
+        lambda o, d, t, tm=None: ct.occluded_inst(clusters, inst, o, d, t,
+                                                  time=tm),
+        lambda o, d, t, tm=None, stats=None: ct.occluded_inst_torch(
+            clusters, inst, o, d, t, time=tm, stats=stats),
+    )
+
+
+def report(kname, res, failures, **extra):
+    print(kname + " " + json.dumps({**extra, **{
+        k: v for k, v in res.items() if k != "stats"}}), flush=True)
+    if res["mismatches"]:
+        failures.append(f"{kname} {extra}: {res['mismatches']} rays")
+
+
+def check_gather(table, idx, label, failures, timed=False):
+    """The gather kernel against ``torch.index_select`` on the clamped
+    index, bit for bit. ``timed``: also the kernel's, the plain version's
+    and the library call's times."""
+    import torch
+
+    from pathtracing_tpu_torch.ops import pgather
+
+    out = pgather.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    safe = torch.clamp(idx, 0, table.shape[0] - 1)
+    ref = torch.index_select(table, 0, safe)
+    bad = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+    res = {"shape": [int(table.shape[0]), int(table.shape[1]),
+                     int(idx.shape[0])],
+           "idx_dtype": str(idx.dtype), "mismatches": bad,
+           "max_abs_err": float((out - ref).abs().max()) if bad else 0.0}
+    if timed:
+        res["ms"], _ = cuda_ms(lambda: pgather.gather_rows(table, idx),
+                               KERNEL_REPS)
+        res["plain_ms"], _ = cuda_ms(
+            lambda: pgather.gather_rows_torch(table, idx), KERNEL_REPS)
+        res["library_ms"], _ = cuda_ms(
+            lambda: torch.index_select(table, 0, safe), KERNEL_REPS)
+        nbytes = (idx.numel() * idx.element_size() + out.numel() * 4
+                  + table.numel() * 4)
+        res["bytes"] = nbytes
+        res["bound_ms"] = nbytes / PEAK_BYTES * 1e3
+    print("gather_rows " + json.dumps({"case": label, **res}), flush=True)
+    if bad:
+        failures.append(f"gather_rows {label}: {bad} words")
+    return res
+
+
+def gather_checks(scene, config, failures):
+    """The gather at the many-light pick's own shape and on awkward ones."""
+    import torch
+
+    from pathtracing_tpu_torch.ops import lights, rng
+
+    lt = scene.lights
+    n_rows, width, n = GATHER_SHAPE
+    if tuple(lt.packed.shape) != (n_rows, width):
+        raise SmokeFailure(f"packed light table {tuple(lt.packed.shape)}")
+    pix = torch.arange(n, dtype=torch.int64, device=DEVICE)
+    idx = lights.pick(lt, rng.ld_scalar(config.seed, pix, 0, rng.STREAM_NEE))
+    if len(torch.unique(idx)) < n_rows // 2:
+        raise SmokeFailure("the light pick reaches too few rows")
+    main = check_gather(lt.packed, idx, "many_lights pick", failures,
+                        timed=True)
+    g = torch.Generator(device="cpu").manual_seed(5)
+
+    def table(rows, w):
+        return torch.randn((rows, w), generator=g).to(DEVICE)
+
+    def index(rows, count, dtype=torch.int64):
+        return torch.randint(-4, rows + 4, (count,), generator=g).to(
+            device=DEVICE, dtype=dtype)
+
+    check_gather(table(1, 24), index(1, 1000), "L=1", failures)
+    check_gather(table(129, 3), index(129, 4099), "L=129 W=3", failures)
+    check_gather(table(288, 24), index(288, 1), "N=1", failures)
+    check_gather(table(288, 24), index(288, 70001, torch.int32),
+                 "int32 indices", failures)
+    check_gather(table(77, 5), index(77, 1 << 16), "W=5", failures)
+    # W a multiple of 4 on a table that starts 4 bytes off a 16-byte
+    # boundary: the kernel must leave its float4 path.
+    off = torch.randn(300 * 24 + 1, generator=g).to(DEVICE)[1:].view(300, 24)
+    check_gather(off, index(300, 5000), "unaligned table", failures)
+    return main
+
+
+def profile_step(step, kernel_names):
+    """Device time of one step by kernel, from torch.profiler: the share of
+    each hand-written kernel in ``kernel_names``, the rest (plain torch:
+    RNG, shading, sampling), and the device's busy share of the step's
+    wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -284,7 +482,7 @@ def profile_step(step):
         return {"wall_ms": wall_ms, "device_ms": "not measured"}
     device_ms = sum(by_name.values())
     ours = {k: sum(v for n, v in by_name.items() if k in n)
-            for k in ("trace_dnf_kernel", "occluded_dnf_kernel")}
+            for k in kernel_names}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
         "wall_ms": wall_ms, "device_ms": device_ms,
@@ -295,9 +493,120 @@ def profile_step(step):
     }
 
 
+def launch_counts():
+    from pathtracing_tpu_torch.ops import cluster_trace as ct
+    from pathtracing_tpu_torch.ops import pgather
+
+    return {**ct.LAUNCHES, **pgather.LAUNCHES}
+
+
+def timed_render(label, scene, camera, config, card, kernel_names):
+    """One warm-up step, then TIMED_STEPS steps through
+    ``progressive.render_step`` with every launch count set to 0 just
+    before and read just after, ``resolve``, and one profiled step.
+    Returns (image, launches)."""
+    import torch
+
+    from pathtracing_tpu_torch.models import progressive
+    from pathtracing_tpu_torch.ops import cluster_trace as ct
+    from pathtracing_tpu_torch.ops import pgather
+
+    state = progressive.init_state(config, device=DEVICE)
+    t0 = time.perf_counter()
+    state = progressive.render_step(state, scene, camera, config)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    stats = {}
+    ct.reset_launches()
+    pgather.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        state = progressive.render_step(state, scene, camera, config,
+                                        stats=stats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    image = progressive.resolve(state)
+    segments = int(stats["segments"])
+    shadow = int(stats["shadow_segments"])
+    mrays = (segments + shadow) / dt / 1e6
+    print(json.dumps({
+        "render": f"{label} {WIDTH}x{HEIGHT} depth{DEPTH} megakernel nee ld",
+        "warmup_step_s": warm_s, "timed_steps": TIMED_STEPS,
+        "step_s": dt / TIMED_STEPS, "segments": segments,
+        "shadow_segments": shadow, "mrays_per_s": mrays,
+        "launches": launches, "card": card,
+    }), flush=True)
+    print(f"{label}: {mrays:.4f} Mrays/s ({segments + shadow} segments in "
+          f"{dt:.3f} s) on {card}", flush=True)
+    print(f"profile {label} " + json.dumps(profile_step(
+        lambda: progressive.render_step(state, scene, camera, config),
+        kernel_names)), flush=True)
+    if tuple(image.shape) != (HEIGHT, WIDTH, 3):
+        raise SmokeFailure(f"{label}: image shape {tuple(image.shape)}")
+    if not bool(torch.isfinite(image).all()):
+        raise SmokeFailure(f"{label}: image has non-finite values")
+    mean = float(image.mean())
+    print(f"{label}: image mean {mean:.6f}", flush=True)
+    if not 0.05 < mean < 5.0:
+        raise SmokeFailure(f"{label}: image mean {mean} outside (0.05, 5)")
+    return image, launches
+
+
+def small_render_check(label, scene, plain_scene, cam_cfg, background):
+    """A 64x64 render through the kernels against the same render through
+    the plain versions (``plain_scene`` with ``traversal="cluster_torch"``).
+    Both routes compute the same t bit for bit (--fmad=false), so only a
+    tie resolved to another triangle can part two paths."""
+    from pathtracing_tpu_torch.models import progressive
+    from pathtracing_tpu_torch.ops.camera import build_camera
+    from pathtracing_tpu_torch.utils.config import RenderConfig
+
+    cam = build_camera(cam_cfg, 1.0, device=DEVICE)
+    imgs = []
+    for trav, sc in (("cluster_cuda", scene), ("cluster_torch", plain_scene)):
+        cfg = RenderConfig(width=64, height=64, samples_per_pixel=2,
+                           max_depth=DEPTH, seed=0, traversal=trav,
+                           background=background)
+        imgs.append(progressive.render_once(sc, cam, cfg))
+    diff = (imgs[0] - imgs[1]).abs().amax(-1)
+    frac = float((diff > 1e-4).float().mean())
+    print(f"small render {label} kernels vs plain: max |diff| "
+          f"{float(diff.max()):.3e}, pixels over 1e-4: {frac:.4%}",
+          flush=True)
+    if frac > 0.005:
+        raise SmokeFailure(f"small render of {label} through the kernels "
+                           "disagrees with the plain versions")
+
+
 def phase(name):
     print(f"== {name}", flush=True)
     return time.perf_counter()
+
+
+def kernel_entry(name, kernel, source, replaces, launches, waves, main,
+                 bound_of, library_ms=None):
+    """One entry of the ``kernels`` line. ``waves``: {wave: result of a
+    check}; ``main``: the wave whose numbers stand at the top level;
+    ``bound_of(result)`` -> (bound_ms, bound_by, ops, bytes)."""
+    per_wave = {}
+    for w, r in waves.items():
+        wb, wby, _, _ = bound_of(r)
+        per_wave[w] = {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                       "bound_ms": wb, "bound_by": wby,
+                       "mismatches": r["mismatches"], "rays": r["rays"],
+                       **r["stats"]}
+    b_ms, b_by, ops, nbytes = bound_of(waves[main])
+    return {
+        "name": name, "route": "cuda", "source": source, "kernel": kernel,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in waves.values()),
+        "ms": waves[main]["ms"], "plain_ms": waves[main]["plain_ms"],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        "wave": main, "ops": ops, "bytes": nbytes,
+        "slab_tests": waves[main]["stats"]["slab_tests"],
+        "vs_plain": "agree", "waves": per_wave,
+    }
 
 
 def run() -> dict:
@@ -312,16 +621,23 @@ def run() -> dict:
     print(f"card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}; {kind}; devices {count}")
 
-    from pathtracing_tpu_torch.models import progressive, scenes
-    from pathtracing_tpu_torch.ops import cluster_trace as ct
+    from pathtracing_tpu_torch.models import scenes
     from pathtracing_tpu_torch.ops import cuda_build
     from pathtracing_tpu_torch.ops.camera import build_camera
     from pathtracing_tpu_torch.utils.config import RenderConfig
 
     t = phase("build")
-    lib = cuda_build.build("cluster_trace")
-    print(f"build: {os.path.relpath(lib, ROOT)} "
-          f"({time.perf_counter() - t:.2f} s)", flush=True)
+    libs = cuda_build.build_all()
+    print(f"build: {sorted(os.path.relpath(p, ROOT) for p in libs.values())}"
+          f" ({time.perf_counter() - t:.2f} s)", flush=True)
+
+    def config_for(background="black"):
+        return RenderConfig(
+            width=WIDTH, height=HEIGHT, samples_per_pixel=TIMED_STEPS + 1,
+            max_depth=DEPTH, samples_per_step=1, seed=0,
+            engine="megakernel", nee=True, sampler="ld",
+            background=background,
+        )
 
     t = phase("scene")
     scene, cam_cfg = scenes.cornell_mesh(6, device=DEVICE)
@@ -330,146 +646,177 @@ def run() -> dict:
     print(f"cornell_mesh(6): {scene.tri_v0.shape[0]} triangles, "
           f"{n_clusters} clusters ({time.perf_counter() - t:.2f} s)",
           flush=True)
-    config = RenderConfig(
-        width=WIDTH, height=HEIGHT, samples_per_pixel=TIMED_STEPS + 1,
-        max_depth=DEPTH, samples_per_step=1, seed=0, engine="megakernel",
-        nee=True, sampler="ld",
-    )
+    config = config_for()
 
-    phase("kernels vs plain")
+    phase("kernels vs plain: flat")
+    failures = []
     waves = make_waves(scene, camera, config)
     results = {"trace": {}, "occluded": {}}
-    failures = []
+    tk, tp, ok, op = flat_fns(scene.clusters)
     for wname in ("camera", "bounce"):
-        res = check_trace(scene, waves[wname])
+        res = check_trace(tk, tp, waves[wname])
         results["trace"][wname] = res
-        print("trace_dnf " + json.dumps({"wave": wname, **{
-            k: v for k, v in res.items() if k != "stats"}}), flush=True)
-        if res["mismatches"]:
-            failures.append(f"trace_dnf {wname}: {res['mismatches']} rays")
+        report("trace_dnf", res, failures, wave=wname)
     for wname in ("camera_shadow", "bounce_shadow"):
-        res = check_occluded(scene, waves[wname])
+        res = check_occluded(ok, op, waves[wname])
         results["occluded"][wname] = res
-        print("occluded_dnf " + json.dumps({"wave": wname, **{
-            k: v for k, v in res.items() if k != "stats"}}), flush=True)
-        if res["mismatches"]:
-            failures.append(f"occluded_dnf {wname}: {res['mismatches']} "
-                            "rays")
+        report("occluded_dnf", res, failures, wave=wname)
     del waves
     # A scene past one shared-memory chunk of boxes (1024 clusters), which
     # the flagship (938) never reaches: both kernels on a triangle soup.
     soup_cl, soup_waves = make_soup()
-    for kname, check, wave in (("trace_dnf", check_trace, "soup"),
-                               ("occluded_dnf", check_occluded,
-                                "soup_shadow")):
-        res = check(None, soup_waves[wave], clusters=soup_cl)
-        print(kname + " " + json.dumps({"wave": wave, "clusters": int(
-            soup_cl.woop.shape[0]), **{k: v for k, v in res.items()
-                                       if k != "stats"}}), flush=True)
-        if res["mismatches"]:
-            failures.append(f"{kname} {wave}: {res['mismatches']} rays")
+    tk, tp, ok, op = flat_fns(soup_cl)
+    n_soup = int(soup_cl.woop.shape[0])
+    report("trace_dnf", check_trace(tk, tp, soup_waves["soup"]), failures,
+           wave="soup", clusters=n_soup)
+    report("occluded_dnf", check_occluded(ok, op, soup_waves["soup_shadow"]),
+           failures, wave="soup_shadow", clusters=n_soup)
     del soup_cl, soup_waves
+
+    t = phase("kernels vs plain: instanced")
+    inst_scene, inst_cam_cfg = scenes.instanced_demo(device=DEVICE)
+    inst_camera = build_camera(inst_cam_cfg, WIDTH / HEIGHT, device=DEVICE)
+    inst_config = config_for(scenes.preferred_background("instanced_demo"))
+    motion_scene = make_motion_demo()
+    n_exp = int(inst_scene.instances.cmap.shape[0])
+    n_proto = int(inst_scene.clusters.woop.shape[0])
+    if inst_scene.instances.imat is None or motion_scene.instances.fw0 is None:
+        raise SmokeFailure("instanced_demo lost its overrides or its motion")
+    print(f"instanced_demo: {n_exp} expanded clusters over {n_proto} stored "
+          f"({time.perf_counter() - t:.2f} s)", flush=True)
+    waves = make_waves(inst_scene, inst_camera, inst_config)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    times = torch.rand(waves["camera"][0].shape[0], generator=gen).to(DEVICE)
+    inst_results = {"trace": {}, "occluded": {}}
+    variants = (
+        ("static", inst_scene, ()),
+        ("motion", motion_scene, (times,)),
+        ("motion_mid", motion_scene, ()),
+    )
+    for vname, sc, extra in variants:
+        tk, tp, ok, op = inst_fns(sc.clusters, sc.instances)
+        for wname in ("camera", "bounce"):
+            res = check_trace(tk, tp, waves[wname] + extra,
+                              chunk=INST_PLAIN_CHUNK, strict=True)
+            res["motion"] = vname != "static"
+            inst_results["trace"][f"{vname}:{wname}"] = res
+            report("trace_dnf_inst", res, failures, variant=vname,
+                   wave=wname)
+        for wname in ("camera_shadow", "bounce_shadow"):
+            res = check_occluded(ok, op, waves[wname] + extra,
+                                 chunk=INST_PLAIN_CHUNK)
+            res["motion"] = vname != "static"
+            inst_results["occluded"][f"{vname}:{wname}"] = res
+            report("occluded_dnf_inst", res, failures, variant=vname,
+                   wave=wname)
+    del waves, motion_scene
+    # Several shared-memory chunks of expanded boxes: the 19x19 field
+    # (5,777 expanded clusters; the kernels' budget is 8,192).
+    big_scene, _ = scenes.instanced_demo(grid=19, device=DEVICE)
+    big_exp = int(big_scene.instances.cmap.shape[0])
+    pix = torch.randperm(WIDTH * HEIGHT, generator=gen)[:(1 << 18) + 13]
+    big_waves = make_waves(big_scene, inst_camera, inst_config,
+                           pix=pix.to(DEVICE), bounce=False)
+    tk, tp, ok, op = inst_fns(big_scene.clusters, big_scene.instances)
+    report("trace_dnf_inst",
+           check_trace(tk, tp, big_waves["camera"], chunk=INST_PLAIN_CHUNK,
+                       strict=True),
+           failures, wave="grid19", expanded=big_exp)
+    report("occluded_dnf_inst",
+           check_occluded(ok, op, big_waves["camera_shadow"],
+                          chunk=INST_PLAIN_CHUNK),
+           failures, wave="grid19_shadow", expanded=big_exp)
+    del big_scene, big_waves
+
+    t = phase("kernel vs plain: gather")
+    lights_scene, lights_cam_cfg = scenes.many_lights_demo(device=DEVICE)
+    lights_camera = build_camera(lights_cam_cfg, WIDTH / HEIGHT,
+                                 device=DEVICE)
+    gather_res = gather_checks(lights_scene, config, failures)
     if failures:
         raise SmokeFailure("kernel disagrees with its plain version: "
                            + "; ".join(failures))
 
-    t = phase("flagship render")
-    state = progressive.init_state(config, device=DEVICE)
-    t0 = time.perf_counter()
-    state = progressive.render_step(state, scene, camera, config)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    stats = {}
-    ct.reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        state = progressive.render_step(state, scene, camera, config,
-                                        stats=stats)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(ct.LAUNCHES)
-    image = progressive.resolve(state)
-    segments = int(stats["segments"])
-    shadow = int(stats["shadow_segments"])
-    mrays = (segments + shadow) / dt / 1e6
-    print(json.dumps({
-        "render": "cornell_mesh(6) 1920x1080 depth8 megakernel nee ld",
-        "warmup_step_s": warm_s, "timed_steps": TIMED_STEPS,
-        "step_s": dt / TIMED_STEPS, "segments": segments,
-        "shadow_segments": shadow, "mrays_per_s": mrays,
-        "launches": launches, "card": card,
-    }), flush=True)
-    print(f"flagship: {mrays:.4f} Mrays/s ({segments + shadow} segments in "
-          f"{dt:.3f} s) on {card}", flush=True)
+    phase("renders")
+    flat_names = ("trace_dnf_kernel", "occluded_dnf_kernel")
+    inst_names = ("trace_dnf_inst_kernel", "occluded_dnf_inst_kernel")
+    _, launches = timed_render("flagship cornell_mesh(6)", scene, camera,
+                               config, card, flat_names)
     for name in ("trace", "occluded"):
         if launches[name] <= 0:
             raise SmokeFailure(f"the flagship render launched no {name} "
                                "kernel")
-    print("profile " + json.dumps(profile_step(
-        lambda: progressive.render_step(state, scene, camera, config))),
-        flush=True)
+    _, inst_launches = timed_render("instanced_demo", inst_scene,
+                                    inst_camera, inst_config, card,
+                                    inst_names)
+    for name in ("trace_inst", "occluded_inst"):
+        if inst_launches[name] <= 0:
+            raise SmokeFailure(f"the instanced render launched no {name} "
+                               "kernel")
+    for name in ("trace", "occluded"):
+        if inst_launches[name] != 0:
+            raise SmokeFailure(f"the instanced render launched the flat "
+                               f"{name} kernel")
+    _, lights_launches = timed_render(
+        "many_lights_demo", lights_scene, lights_camera, config, card,
+        flat_names + ("gather_rows_kernel",))
+    if lights_launches["gather_rows"] <= 0:
+        raise SmokeFailure("the many-light render launched no gather kernel")
 
     phase("check")
-    if tuple(image.shape) != (HEIGHT, WIDTH, 3):
-        raise SmokeFailure(f"image shape {tuple(image.shape)}")
-    if not bool(torch.isfinite(image).all()):
-        raise SmokeFailure("image has non-finite values")
-    mean = float(image.mean())
-    print(f"image mean {mean:.6f}")
-    if not 0.05 < mean < 5.0:
-        raise SmokeFailure(f"image mean {mean} outside (0.05, 5)")
     small_scene, _ = scenes.cornell_mesh(3, device=DEVICE)
-    small_cam = build_camera(cam_cfg, 1.0, device=DEVICE)
-    imgs = {}
-    for trav in ("cluster_cuda", "cluster_torch"):
-        cfg = RenderConfig(width=64, height=64, samples_per_pixel=2,
-                           max_depth=DEPTH, seed=0, traversal=trav)
-        imgs[trav] = progressive.render_once(small_scene, small_cam, cfg)
-    diff = (imgs["cluster_cuda"] - imgs["cluster_torch"]).abs().amax(-1)
-    frac = float((diff > 1e-4).float().mean())
-    print(f"small render kernels vs plain: max |diff| {float(diff.max()):.3e}"
-          f", pixels over 1e-4: {frac:.4%}", flush=True)
-    # Both routes compute the same t bit for bit (--fmad=false), so only a
-    # tie resolved to another triangle can part two paths.
-    if frac > 0.005:
-        raise SmokeFailure("small render through the kernels disagrees with "
-                           "the plain versions")
+    small_render_check("cornell_mesh(3)", small_scene, small_scene, cam_cfg,
+                       "black")
+    small_inst, _ = scenes.instanced_demo(grid=6, subdivisions=2,
+                                          device=DEVICE)
+    small_render_check("instanced_demo(6, 2)", small_inst, small_inst,
+                       inst_cam_cfg, inst_config.background)
+    # The many-light scene's plain route also leaves the gather kernel: a
+    # table without its packed rows indexes each column by the pick.
+    unpacked = lights_scene._replace(
+        lights=lights_scene.lights._replace(packed=None))
+    small_render_check("many_lights_demo", lights_scene, unpacked,
+                       lights_cam_cfg, "black")
 
-    kernels = []
-    for name, src_fn, replaces, waves_used, ray_bytes in (
-        ("trace_dnf", "trace_dnf_kernel",
-         "pathtracing_tpu/ops/cluster_trace.py:1153", ("camera", "bounce"),
-         52),
-        ("occluded_dnf", "occluded_dnf_kernel",
-         "pathtracing_tpu/ops/cluster_trace.py:1266",
-         ("camera_shadow", "bounce_shadow"), 29),
+    src = "pathtracing_tpu_torch/csrc/"
+    main_inst = {"trace": "static:camera", "occluded": "static:camera_shadow"}
+    kernels = [
+        kernel_entry(
+            "trace_dnf", "trace_dnf_kernel", src + "cluster_trace.cu",
+            TPU_SOURCE + ":1153", launches["trace"], results["trace"],
+            "camera",
+            lambda r: bound_ms(r["stats"], r["rays"], n_clusters, 52)),
+        kernel_entry(
+            "occluded_dnf", "occluded_dnf_kernel", src + "cluster_trace.cu",
+            TPU_SOURCE + ":1266", launches["occluded"], results["occluded"],
+            "camera_shadow",
+            lambda r: bound_ms(r["stats"], r["rays"], n_clusters, 29)),
+    ]
+    for key, name, line, ray_bytes in (
+        ("trace", "trace_dnf_inst", 1836, 52),
+        ("occluded", "occluded_dnf_inst", 1855, 29),
     ):
-        key = "trace" if name == "trace_dnf" else "occluded"
-        main = results[key][waves_used[0]]
-        b_ms, b_by, ops, nbytes = bound_ms(main["stats"], main["rays"],
-                                           n_clusters, ray_bytes)
-        per_wave = {}
-        for w in waves_used:
-            r = results[key][w]
-            wb, wby, _, _ = bound_ms(r["stats"], r["rays"], n_clusters,
-                                     ray_bytes)
-            per_wave[w] = {"ms": r["ms"], "plain_ms": r["plain_ms"],
-                           "bound_ms": wb, "bound_by": wby,
-                           "mismatches": r["mismatches"], "rays": r["rays"],
-                           **r["stats"]}
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "pathtracing_tpu_torch/csrc/cluster_trace.cu",
-            "kernel": src_fn,
-            "replaces": replaces, "launches": launches[key],
-            "max_abs_err": max(results[key][w]["max_abs_err"]
-                               for w in waves_used),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "wave": waves_used[0], "ops": ops, "bytes": nbytes,
-            "slab_tests": main["stats"]["slab_tests"],
-            "vs_plain": "agree", "waves": per_wave,
-        })
+        # Each wave's bound follows its variant: motion waves count the
+        # per-pair inverse and the shutter times.
+        kernels.append(kernel_entry(
+            name, name + "_kernel", src + "cluster_trace_inst.cu",
+            f"{TPU_SOURCE}:{line}", inst_launches[key + "_inst"],
+            inst_results[key], main_inst[key],
+            lambda r, rb=ray_bytes: bound_ms(
+                r["stats"], r["rays"], n_proto, rb, n_exp=n_exp,
+                motion=r["motion"])))
+    kernels.append({
+        "name": "gather_rows", "route": "cuda", "source": src + "pgather.cu",
+        "kernel": "gather_rows_kernel",
+        "replaces": "pathtracing_tpu/ops/pgather.py:69",
+        "launches": lights_launches["gather_rows"],
+        "max_abs_err": gather_res["max_abs_err"], "ms": gather_res["ms"],
+        "plain_ms": gather_res["plain_ms"],
+        "bound_ms": gather_res["bound_ms"], "bound_by": "bytes",
+        "library_ms": gather_res["library_ms"],
+        "library": "torch.index_select", "shape": gather_res["shape"],
+        "bytes": gather_res["bytes"], "vs_plain": "agree",
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -82,6 +82,16 @@ def render_samples(scene, camera, config: RenderConfig, sample_start: int,
     return accum
 
 
+def shutter_times(config: RenderConfig, seed: int, pixel_index,
+                  sample_idx: int, keys):
+    """Per-path shutter time in [0, 1) for object motion blur, from the
+    stream camera motion draws from, so rigid camera and object motion stay
+    consistent. ``keys`` are the per-path keys of ``camera_sample``."""
+    if config.sampler == "ld":
+        return rng.ld_scalar(seed, pixel_index, sample_idx, rng.STREAM_TIME)
+    return rng.uniform(rng.stream_key(keys, 0, rng.STREAM_TIME))
+
+
 def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
                   pixel_index, sample_idx: int, seed: int, stats=None):
     """Per-path radiance ((R, 3)) for one wave of global pixel ids."""
@@ -99,6 +109,10 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
             rng.ld_pair(seed, pixel_index, sample_idx, rng.STREAM_SCATTER),
             dim=1)
 
+    times = None
+    if scene_mod.has_motion(scene):
+        times = shutter_times(config, seed, pixel_index, sample_idx, keys)
+
     n = pixel_index.shape[0]
     dev = pixel_index.device
     # (radiance, throughput, o, d, active, prev_pdf, prev_nee)
@@ -110,10 +124,10 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
         torch.zeros(n, dtype=torch.float32, device=dev),
         torch.zeros(n, dtype=torch.bool, device=dev),
     )
-    per_path = [keys, ld_nee, ld_scatter]
+    per_path = [keys, ld_nee, ld_scatter, times]
 
     def bounces(state, per_path, start, stop):
-        ks, ldn, lds = per_path
+        ks, ldn, lds, tm = per_path
         for depth in range(start, stop):
             out = shading.bounce_batch(
                 scene, state[2], state[3], ks, depth, state[0], state[1],
@@ -121,7 +135,7 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
                 traversal, nee=config.nee, prev_pdf=state[5],
                 prev_nee=state[6], ld_nee=ldn, ld_scatter=lds,
                 nee_candidates=config.nee_candidates,
-                return_shadow_count=True,
+                return_shadow_count=True, time=tm,
             )
             if stats is not None:
                 stats["segments"] = stats.get("segments", 0) + state[4].sum()

@@ -1,6 +1,7 @@
 """Scene representation (the JAX package's ``models/scene.py``, as far as
-the flagship path needs it): spheres, triangles, cluster tables, the
-material table and the area-light table, as tensors on one device.
+the ported paths need it): spheres, triangles, cluster tables, shared-
+geometry instances, the material table and the area-light table, as
+tensors on one device.
 
 Layout invariants (as in the JAX package):
   * ≥ 1 sphere and ≥ 1 triangle always exist (degenerate, mat_id 0, never
@@ -12,7 +13,8 @@ Layout invariants (as in the JAX package):
 ``intersect_batch``/``occluded_batch`` run the sphere pre-pass, then route
 the triangles to ``ops.cluster_trace``: the CUDA kernels for
 ``traversal="cluster_cuda"`` and their plain torch versions for
-``"cluster_torch"``. ``scene_from_numpy`` takes the JAX package's Scene
+``"cluster_torch"``; a scene with ``instances`` goes to the instanced pair
+under either name. ``scene_from_numpy`` takes the JAX package's Scene
 fields as numpy arrays, so one scene can feed both packages.
 """
 
@@ -44,6 +46,19 @@ class Scene(NamedTuple):
     mat_emit: torch.Tensor     # (K, 3) f32
     clusters: cluster_ops.ClusterSet
     lights: lights.LightTable
+    # (K,) f32 metallic column of TYPE_PRINCIPLED materials (mat_param
+    # carries their perceptual roughness); None unless some material is
+    # principled, and the lobe is then never built.
+    mat_metallic: torch.Tensor = None
+    # (K, 2) f32 clearcoat column [strength, roughness] of principled
+    # materials; None unless some material has clearcoat > 0.
+    mat_clearcoat: torch.Tensor = None
+    # Shared-geometry instancing (ops.clusters.InstanceSet): expanded
+    # per-instance world boxes and transforms over the PROTOTYPE clusters
+    # stored in ``clusters`` (base geometry rides along as identity
+    # entries). When set, every cluster query goes through the instanced
+    # kernels. None for ordinary scenes.
+    instances: cluster_ops.InstanceSet = None
 
     @property
     def material_table(self):
@@ -80,10 +95,7 @@ _UNPORTED_FIELDS = {
     "mat_param2": "item 11 (materials)",
     "mat_ntex": "item 12 (surface attributes)",
     "mat_disp": "item 11 (materials)",
-    "mat_metallic": "item 11 (materials)",
-    "mat_clearcoat": "item 11 (materials)",
     "mat_mrtex": "item 12 (surface attributes)",
-    "instances": "item 14 (instancing)",
     "mat_aniso": "item 11 (materials)",
     "delta": "item 11 (delta lights)",
     "vol": "item 16 (media)",
@@ -117,15 +129,39 @@ def scene_from_numpy(arrays, device) -> Scene:
 
     cl = _fields(arrays["clusters"])
     li = _fields(arrays["lights"])
-    for name in ("kind", "uv0", "uv_e1", "uv_e2", "tex", "packed"):
+    for name in ("uv0", "uv_e1", "uv_e2", "tex"):
         if li.get(name) is not None:
             raise NotImplementedError(
-                f"light-table column {name!r} is not ported yet (ROADMAP "
-                "queue A item 11)"
+                f"light-table column {name!r} (textured emitters) is not "
+                "ported yet (ROADMAP queue A item 12)"
             )
+
+    def opt(table, name, dtype):
+        x = table.get(name)
+        return None if x is None else dev(x, dtype)
+
     fields = {n: dev(arrays[n], torch.float32) for n in _FLOAT_FIELDS}
     fields.update({n: dev(arrays[n], torch.int32) for n in _INT_FIELDS})
+    instances = None
+    if arrays.get("instances") is not None:
+        it = _fields(arrays["instances"])
+        instances = cluster_ops.InstanceSet(
+            cmap=dev(it["cmap"], torch.int32),
+            xform=dev(it["xform"], torch.float32),
+            aabb_min=dev(it["aabb_min"], torch.float32),
+            aabb_max=dev(it["aabb_max"], torch.float32),
+            inst_id=dev(it["inst_id"], torch.int32),
+            imat=opt(it, "imat", torch.int32),
+            fw0=opt(it, "fw0", torch.float32),
+            fw1=opt(it, "fw1", torch.float32),
+        )
+    light_cols = {n: dev(li[n], torch.float32)
+                  for n in lights.LightTable._fields
+                  if n not in ("kind", "packed")}
     return Scene(
+        mat_metallic=opt(arrays, "mat_metallic", torch.float32),
+        mat_clearcoat=opt(arrays, "mat_clearcoat", torch.float32),
+        instances=instances,
         clusters=cluster_ops.ClusterSet(
             aabb_min=dev(cl["aabb_min"], torch.float32),
             aabb_max=dev(cl["aabb_max"], torch.float32),
@@ -134,7 +170,9 @@ def scene_from_numpy(arrays, device) -> Scene:
             mat=dev(cl["mat"], torch.int32),
         ),
         lights=lights.LightTable(
-            **{n: dev(li[n], torch.float32) for n in lights.LightTable._fields}
+            kind=opt(li, "kind", torch.int32),
+            packed=opt(li, "packed", torch.float32),
+            **light_cols,
         ),
         **fields,
     )
@@ -149,12 +187,19 @@ class SceneBuilder:
         self._tri = []         # (v0, v1, v2, mat)
         self._tri_chunks = []  # (v0 (k,3), v1, v2, mat (k,)) arrays
         self._mat = []         # (type, albedo, param, emit)
+        self._mat_metallic = []  # per-material metallic (principled)
+        self._mat_cc = []      # per-material (clearcoat, coat roughness)
+        # (v0, e1, e2, mats, [(3,4) transforms], [imat], [motion (3,4)])
+        self._protos = []
 
     # -- materials ---------------------------------------------------------
     def add_material(self, mtype, albedo=(0.0, 0.0, 0.0), param=0.0,
-                     emit=(0.0, 0.0, 0.0)) -> int:
+                     emit=(0.0, 0.0, 0.0), metallic=0.0, clearcoat=0.0,
+                     clearcoat_roughness=0.1) -> int:
         self._mat.append((int(mtype), tuple(albedo), float(param),
                           tuple(emit)))
+        self._mat_metallic.append(float(metallic))
+        self._mat_cc.append((float(clearcoat), float(clearcoat_roughness)))
         return len(self._mat) - 1
 
     def lambertian(self, albedo) -> int:
@@ -162,6 +207,28 @@ class SceneBuilder:
 
     def metal(self, albedo, fuzz=0.0) -> int:
         return self.add_material(materials.TYPE_METAL, albedo, fuzz)
+
+    def ggx(self, f0, roughness=0.1) -> int:
+        """Microfacet conductor: f0 = Fresnel normal reflectance,
+        roughness = GGX alpha. Unlike ``metal`` it has a real pdf, so
+        glossy vertices take part in NEE/MIS. Anisotropy is not ported yet
+        (ROADMAP queue A item 11)."""
+        return self.add_material(materials.TYPE_GGX, f0, roughness)
+
+    def principled(self, base_color, metallic=0.0, roughness=0.5,
+                   clearcoat=0.0, clearcoat_roughness=0.1) -> int:
+        """Metallic-roughness material: diffuse + GGX specular with
+        F0 = lerp(0.04, base_color, metallic); ``roughness`` is perceptual
+        (GGX alpha = roughness²). Fully NEE/MIS-eligible. ``clearcoat``
+        adds a second GGX layer at fixed IOR 1.5 with its own
+        ``clearcoat_roughness``; the layer's Fresnel attenuates the base
+        lobes. Texture, normal and metallic-roughness maps are not ported
+        yet (ROADMAP queue A item 12)."""
+        return self.add_material(
+            materials.TYPE_PRINCIPLED, base_color, roughness,
+            metallic=metallic, clearcoat=clearcoat,
+            clearcoat_roughness=clearcoat_roughness,
+        )
 
     def dielectric(self, ior=1.5, tint=(1.0, 1.0, 1.0)) -> int:
         """Smooth dielectric; absorption, roughness, dispersion and
@@ -198,6 +265,79 @@ class SceneBuilder:
         self._tri_chunks.append((
             tri[:, 0], tri[:, 1], tri[:, 2],
             np.full(tri.shape[0], int(mat_id), np.int32),
+        ))
+
+    def add_instances(self, vertices: np.ndarray, faces: np.ndarray,
+                      mat_id, transforms, materials=None,
+                      motion_transforms=None) -> None:
+        """Instance one prototype mesh many times by object→world affine
+        transforms — shared geometry (``ops.clusters.InstanceSet``): the
+        mesh's Woop and material tensors are stored ONCE; each transform
+        adds only ~72 bytes per prototype cluster of expanded traversal
+        metadata.
+
+        ``transforms``: sequence of (3, 4) or (4, 4) affine matrices (any
+        invertible affine; normals transform exactly by the inverse
+        transpose). Enforced at ``build()``: instanced materials cannot be
+        emissive (the light table indexes world-space triangles) and the
+        expanded cluster count must fit the flat kernels' budget.
+
+        ``materials`` (optional): one material id (or None) PER TRANSFORM,
+        overriding ``mat_id`` for that instance. Overrides cannot be
+        emissive either.
+
+        ``motion_transforms`` (optional): one SHUTTER-CLOSE transform (or
+        None = static) per entry of ``transforms`` — object motion blur.
+        The forward affine is lerped per ray at the path's shutter time
+        (``ops.cluster_trace._lerp_affine_inverse``)."""
+        vertices = np.asarray(vertices, np.float64)
+        faces = np.asarray(faces, np.int64)
+        tri = vertices[faces]
+        v0, v1, v2 = tri[:, 0], tri[:, 1], tri[:, 2]
+        mats = np.full(tri.shape[0], int(mat_id), np.int32)
+
+        def affine(m, what):
+            m = np.asarray(m, np.float64)
+            if m.shape == (4, 4):
+                m = m[:3]
+            if m.shape != (3, 4):
+                raise ValueError(
+                    f"{what} transform must be (3,4) or (4,4); "
+                    f"got {m.shape}"
+                )
+            if abs(np.linalg.det(m[:, :3])) < 1e-12:
+                raise ValueError(f"{what} transform is singular")
+            return m
+
+        ts = [affine(m, "instance") for m in transforms]
+        if not ts:
+            raise ValueError("add_instances needs at least one transform")
+        if motion_transforms is None:
+            mts = [None] * len(ts)
+        else:
+            if len(motion_transforms) != len(ts):
+                raise ValueError(
+                    "add_instances motion_transforms must match "
+                    f"transforms ({len(motion_transforms)} vs {len(ts)})"
+                )
+            mts = [None if m1 is None else affine(m1, "motion")
+                   for m1 in motion_transforms]
+        if materials is None:
+            imats = [-1] * len(ts)
+        else:
+            if len(materials) != len(ts):
+                raise ValueError(
+                    "add_instances materials must match transforms "
+                    f"({len(materials)} vs {len(ts)})"
+                )
+            imats = [int(m) if m is not None else -1 for m in materials]
+        # Cast, then subtract in f32, as build() forms its edges: an
+        # identity-transform instance must trace bit-identically to the
+        # same mesh added flat.
+        v0f = v0.astype(np.float32)
+        self._protos.append((
+            v0f, v1.astype(np.float32) - v0f,
+            v2.astype(np.float32) - v0f, mats, ts, imats, mts,
         ))
 
     # -- finalize ----------------------------------------------------------
@@ -237,6 +377,13 @@ class SceneBuilder:
         # the light table, and so the light picks, follow).
         _, perm = bvh_ops.build_bvh(v0, e1, e2)
         cl, _, _ = cluster_ops.build_clusters(v0, e1, e2, tri_mat)
+        if self._protos and (cl.woop.shape[0]
+                             > cluster_trace.DNF_MAX_CLUSTERS):
+            raise ValueError(
+                "instanced scenes cannot page: base geometry must fit "
+                f"the flat DNF budget ({cluster_trace.DNF_MAX_CLUSTERS} "
+                "clusters)"
+            )
         if cl.woop.shape[0] > cluster_trace.DNF_MAX_CLUSTERS:
             raise NotImplementedError(
                 f"{cl.woop.shape[0]} clusters exceed the flat kernels' "
@@ -246,6 +393,10 @@ class SceneBuilder:
         v0, e1, e2, tri_mat = v0[perm], e1[perm], e2[perm], tri_mat[perm]
 
         mat_type = np.array([m[0] for m in self._mat], np.int32)
+        instances = None
+        if self._protos:
+            cl, instances = self._expand_protos(cl, mat_type)
+
         mat_albedo = np.array([m[1] for m in self._mat], np.float32)
         mat_param = np.array([m[2] for m in self._mat], np.float32)
         mat_emit = np.array([m[3] for m in self._mat], np.float32)
@@ -253,7 +404,22 @@ class SceneBuilder:
         def dev(x, dtype=torch.float32):
             return torch.as_tensor(x, dtype=dtype, device=device)
 
+        mat_metallic = mat_clearcoat = None
+        if (mat_type == materials.TYPE_PRINCIPLED).any():
+            mat_metallic = dev(np.array(self._mat_metallic, np.float32))
+            cc = np.array(self._mat_cc, np.float32)
+            if (cc[:, 0] > 0.0).any():
+                mat_clearcoat = dev(cc)
+        if instances is not None:
+            instances = cluster_ops.InstanceSet(*(
+                None if x is None else dev(
+                    x, torch.float32 if x.dtype == np.float32
+                    else torch.int32)
+                for x in instances))
+
         return Scene(
+            mat_metallic=mat_metallic, mat_clearcoat=mat_clearcoat,
+            instances=instances,
             sph_center=dev(sph_center), sph_radius=dev(sph_radius),
             sph_mat=dev(sph_mat, torch.int32),
             tri_v0=dev(v0), tri_e1=dev(e1), tri_e2=dev(e2),
@@ -273,10 +439,56 @@ class SceneBuilder:
             ),
         )
 
+    def _expand_protos(self, cl, mat_type):
+        """Append each prototype's clusters (built in OBJECT space, packed
+        per prototype so cluster ranges stay contiguous) after the base
+        clusters, then expand the placements — base geometry as one
+        identity entry, every instance as a (first, count, M, imat, M1)
+        range — into the InstanceSet. Returns (combined ClusterSet,
+        InstanceSet), numpy."""
+        n_base = cl.aabb_min.shape[0]
+        placements = [(0, n_base, np.concatenate(
+            [np.eye(3), np.zeros((3, 1))], axis=1))]
+        parts = [cl]
+        offset = n_base
+        for pv0, pe1, pe2, pmats, ts, imats, mts in self._protos:
+            if (mat_type[pmats] == materials.TYPE_EMISSIVE).any():
+                raise ValueError(
+                    "instanced prototypes cannot use emissive materials "
+                    "(the NEE light table indexes world-space triangles); "
+                    "add emitters as base geometry"
+                )
+            for im in imats:
+                if im >= 0 and mat_type[im] == materials.TYPE_EMISSIVE:
+                    raise ValueError(
+                        "per-instance material overrides cannot be "
+                        "emissive (same light-table reason)"
+                    )
+            pcl, _, _ = cluster_ops.build_clusters(pv0, pe1, pe2, pmats)
+            npc = pcl.aabb_min.shape[0]
+            parts.append(pcl)
+            for m, im, m1 in zip(ts, imats, mts):
+                placements.append((offset, npc, m, im, m1))
+            offset += npc
+        cl = cluster_ops.ClusterSet(*(
+            np.concatenate([getattr(p, f) for p in parts])
+            for f in cluster_ops.ClusterSet._fields))
+        instances = cluster_ops.expand_instances(cl, placements)
+        ce = instances.cmap.shape[0]
+        if ce > cluster_trace.DNF_MAX_CLUSTERS:
+            raise ValueError(
+                f"{ce} expanded instance clusters exceed the DNF budget "
+                f"({cluster_trace.DNF_MAX_CLUSTERS}); reduce instance "
+                "counts or split the scene"
+            )
+        return cl, instances
+
 
 def has_motion(scene: Scene) -> bool:
-    """Motion-blurred instances are not ported yet: always False."""
-    return False
+    """True when the scene carries motion-blurred instances: the engine
+    then draws a per-path shutter time and passes it to every closest-hit
+    and shadow query."""
+    return scene.instances is not None and scene.instances.fw0 is not None
 
 
 def uses_mips(scene: Scene) -> bool:
@@ -285,10 +497,12 @@ def uses_mips(scene: Scene) -> bool:
 
 
 def uses_dnf(scene: Scene) -> bool:
-    """True when cluster queries route to the flat cluster kernels (every
-    scene the port's builder accepts)."""
-    return (scene.clusters is not None and scene.clusters.woop.shape[0]
-            <= cluster_trace.DNF_MAX_CLUSTERS)
+    """True when cluster queries route to the flat or instanced cluster
+    kernels (every scene ``SceneBuilder`` accepts)."""
+    return scene.clusters is not None and (
+        scene.instances is not None
+        or scene.clusters.woop.shape[0] <= cluster_trace.DNF_MAX_CLUSTERS
+    )
 
 
 def _sphere_pass(scene: Scene, origin, direction):
@@ -300,20 +514,46 @@ def _sphere_pass(scene: Scene, origin, direction):
     )
 
 
-def _route(traversal: str, torch_fn, kernel_fn):
-    if traversal == "cluster_torch":
-        return torch_fn
-    if traversal == "cluster_cuda":
-        return kernel_fn
-    raise ValueError(f"unknown traversal mode: {traversal!r}")
+_ROUTES = {
+    # (query, instanced): (plain version, dispatching kernel wrapper)
+    ("trace", False): (cluster_trace.trace_torch, cluster_trace.trace),
+    ("occluded", False): (cluster_trace.occluded_torch,
+                          cluster_trace.occluded),
+    ("trace", True): (cluster_trace.trace_inst_torch,
+                      cluster_trace.trace_inst),
+    ("occluded", True): (cluster_trace.occluded_inst_torch,
+                         cluster_trace.occluded_inst),
+}
+
+
+def _cluster_query(scene: Scene, query: str, traversal: str):
+    """The cluster traversal of this scene under ``traversal``, as a
+    function (origin, direction, cap, time) -> result. Instanced scenes
+    take the instanced pair (``time`` is the per-ray shutter time of a
+    motion set); flat scenes ignore ``time``."""
+    instanced = scene.instances is not None
+    if instanced and traversal == "bvh":
+        raise ValueError(
+            "instanced scenes need a cluster traversal mode (the BVH only "
+            "indexes base triangles)"
+        )
+    if traversal not in ("cluster_torch", "cluster_cuda"):
+        raise ValueError(f"unknown traversal mode: {traversal!r}")
+    fn = _ROUTES[query, instanced][traversal == "cluster_cuda"]
+    if instanced:
+        return lambda o, d, cap, time: fn(scene.clusters, scene.instances,
+                                          o, d, cap, time=time)
+    return lambda o, d, cap, time: fn(scene.clusters, o, d, cap)
 
 
 def occluded_batch(scene: Scene, origin, direction, t_max,
-                   traversal: str, active=None):
+                   traversal: str, active=None, time=None):
     """Any-hit occlusion for a (R, 3) ray batch: True where any primitive
     lies strictly inside (T_MIN, t_max). Lanes the sphere pass already
     occluded, and inactive lanes, get a zero cap so the cluster sweep
-    skips them (the result ORs the sphere answer back in)."""
+    skips them (the result ORs the sphere answer back in). ``time``
+    (optional (R,)): per-ray shutter time for motion-blurred instances."""
+    query = _cluster_query(scene, "occluded", traversal)
     ts = _sphere_pass(scene, origin, direction)
     occ_sph = torch.min(ts, dim=1).values < t_max
     if active is not None:
@@ -322,18 +562,17 @@ def occluded_batch(scene: Scene, origin, direction, t_max,
     if active is not None:
         cap = torch.where(active, cap, 0.0)
     cap = torch.where(occ_sph, 0.0, cap)
-    fn = _route(traversal, cluster_trace.occluded_torch,
-                cluster_trace.occluded)
-    occ_tri = fn(scene.clusters, origin, direction, cap)
-    return occ_sph | occ_tri
+    return occ_sph | query(origin, direction, cap, time)
 
 
 def intersect_batch(scene: Scene, origin, direction, traversal: str,
-                    active=None, t_max=None) -> Hit:
+                    active=None, t_max=None, time=None) -> Hit:
     """Closest hit for a whole (R, 3) ray batch. Spheres first (their best
     t culls the cluster sweep); ``active`` (optional (R,) bool) gives dead
     lanes ``t_init = 0``, and their Hit fields are garbage the callers
-    mask."""
+    mask. ``time`` (optional (R,)): per-ray shutter time for
+    motion-blurred instances."""
+    query = _cluster_query(scene, "trace", traversal)
     ts = _sphere_pass(scene, origin, direction)               # (R, S)
     sph_t, sph_idx = torch.min(ts, dim=1)
     t_init = torch.where(torch.isfinite(sph_t), sph_t, 3.0e38)
@@ -342,9 +581,7 @@ def intersect_batch(scene: Scene, origin, direction, traversal: str,
     if active is not None:
         t_init = torch.where(active, t_init, 0.0)
 
-    fn = _route(traversal, cluster_trace.trace_torch, cluster_trace.trace)
-    tri_t, slot, n_tri, mat_tri = fn(scene.clusters, origin, direction,
-                                     t_init)
+    tri_t, slot, n_tri, mat_tri = query(origin, direction, t_init, time)
 
     hit_tri = slot >= 0
     t = torch.where(hit_tri, tri_t, sph_t)

@@ -7,10 +7,10 @@ package's threefry streams, bit for bit (``ops.rng``), so both packages
 follow the same paths for the same (pixel, sample, bounce) counters.
 
 Ported branches: scenes without fog, volumes, subsurface media,
-absorbing media, environment maps, delta lights, textures, mip cones,
-anisotropic or principled materials, and ``nee_candidates == 1``. Every
-other branch raises ``NotImplementedError`` naming the ROADMAP queue-A
-item that ports it.
+absorbing media, environment maps, delta lights, textures, mip cones or
+anisotropic materials, and ``nee_candidates == 1``. Every other branch
+raises ``NotImplementedError`` naming the ROADMAP queue-A item that
+ports it.
 """
 
 from __future__ import annotations
@@ -33,10 +33,12 @@ def background_radiance(direction, mode: str):
     if mode == "white":
         return torch.ones(shape, dtype=torch.float32, device=direction.device)
     if mode == "gradient":
+        # White (1, 1, 1) straight down to blue (0.5, 0.7, 1) straight up,
+        # per channel with Python scalars: a color tensor made on the host
+        # here would cost a blocking copy to the card per bounce.
         t = 0.5 * (direction[..., 1] + 1.0)
-        white = torch.tensor([1.0, 1.0, 1.0], device=direction.device)
-        blue = torch.tensor([0.5, 0.7, 1.0], device=direction.device)
-        return (1.0 - t)[..., None] * white + t[..., None] * blue
+        s = 1.0 - t
+        return torch.stack([s + t * 0.5, s + t * 0.7, s + t], dim=-1)
     if mode == "uv":
         return torch.stack([direction[..., 0], direction[..., 1],
                             torch.zeros_like(direction[..., 0])], dim=-1)
@@ -54,12 +56,14 @@ def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
                  active, rr_start_depth, background: str, traversal: str,
                  nee: bool = False, prev_pdf=None, prev_nee=None,
                  ld_nee=None, ld_scatter=None, nee_candidates: int = 1,
-                 return_shadow_count: bool = False):
+                 return_shadow_count: bool = False, time=None):
     """One bounce for a whole (R,) ray batch (``depth`` an int: the
     megakernel's bounce index). ``keys`` are the per-path keys
     (``camera_sample``); ``ld_nee`` ((R, 3)) / ``ld_scatter`` ((R, 2))
     optionally replace the first vertex's NEE and scatter draws with the
-    precomputed low-discrepancy ones. Returns (radiance, throughput, o, d,
+    precomputed low-discrepancy ones; ``time`` ((R,), scenes with
+    motion-blurred instances) is the per-path shutter time, passed to the
+    closest-hit and the shadow query. Returns (radiance, throughput, o, d,
     active, prev_pdf, prev_nee), plus the number of shadow rays traced
     (an int64 0-d tensor) with ``return_shadow_count``."""
     if nee_candidates != 1:
@@ -80,7 +84,8 @@ def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
     kd = rng.fold_in(keys, depth)
     first = depth == 0
 
-    hit = scene_mod.intersect_batch(scene, o, d, traversal, active=active)
+    hit = scene_mod.intersect_batch(scene, o, d, traversal, active=active,
+                                    time=time)
 
     env = background_radiance(d, background)
     escaped = active & ~hit.valid
@@ -89,6 +94,14 @@ def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
     mtype, alb, par, emit = materials.gather(scene.material_table, hit.mat_id)
     alb = materials.effective_albedo(mtype, alb, par, emit, hit.position)
     emit = materials.effective_emission(mtype, emit)
+    metal_col = cc_col = None
+    if scene.mat_metallic is not None:
+        # Principled columns, gathered only by scenes that carry them.
+        safe_id = torch.clamp(hit.mat_id, 0,
+                              scene.mat_metallic.shape[0] - 1).long()
+        metal_col = scene.mat_metallic[safe_id]
+        if scene.mat_clearcoat is not None:
+            cc_col = scene.mat_clearcoat[safe_id]
     live = active & hit.valid
 
     nee_on = nee and scene.lights is not None
@@ -130,17 +143,24 @@ def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
                 & (dist2 > 1e-8) & (total_power > 0.0))
         t_shadow = dist * (1.0 - 1e-3)
         occluded = scene_mod.occluded_batch(
-            scene, o_nee, wi, t_shadow, traversal, active=cand
+            scene, o_nee, wi, t_shadow, traversal, active=cand, time=time
         )
         vis = cand & ~occluded
         n_shadow = cand.sum()
 
         # The finite-pdf lobe toward the light: GGX eval for GGX hits,
-        # Lambertian otherwise.
+        # the two- or three-lobe sum with its mixture pdf for principled
+        # hits, Lambertian otherwise.
         is_g = mtype == materials.TYPE_GGX
         f_g, pdf_g = materials.ggx_eval(alb, par, hit.normal, -d, wi)
         f_lobe = torch.where(is_g[:, None], f_g, alb * INV_PI)
         pdf_b = torch.where(is_g, pdf_g, cos_s * INV_PI)
+        if metal_col is not None:
+            is_pr = mtype == materials.TYPE_PRINCIPLED
+            f_p, pdf_p = materials.principled_eval(
+                alb, metal_col, par, hit.normal, -d, wi, clearcoat=cc_col)
+            f_lobe = torch.where(is_pr[:, None], f_p, f_lobe)
+            pdf_b = torch.where(is_pr, pdf_p, pdf_b)
 
         pdf_l = dist2 * linalg.luminance(lemit) / (cos_l * total_power
                                                    + 1e-20)
@@ -153,7 +173,8 @@ def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
     if ld_scatter is not None and first:
         u = torch.cat([ld_scatter, u[:, 2:]], dim=1)
     d_out, atten, scattered, scatter_pdf = materials.scatter(
-        mtype, alb, par, emit, hit.normal, d, hit.front, u
+        mtype, alb, par, emit, hit.normal, d, hit.front, u,
+        metallic=metal_col, clearcoat=cc_col,
     )
     throughput = throughput * torch.where(live[:, None], atten, 1.0)
     active = live & scattered

@@ -3,10 +3,11 @@
 Every ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``pathtracing_tpu_torch/.build/`` (git-ignored), named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-loads at once. ``--fmad=false`` keeps the kernels' float rounding equal to
-the plain torch versions' (no contracted multiply-adds), so the card-side
-check against them can be tight.
+source, the shared headers and the flags, so an edited source rebuilds and
+an unchanged one loads at once. ``build_all`` starts one ``nvcc`` per
+source, all together. ``--fmad=false`` keeps the kernels' float rounding
+equal to the plain torch versions' (no contracted multiply-adds), so the
+card-side check against them can be tight.
 
 Nothing is compiled when this module is imported: the CPU test suite
 imports every module on a machine without ``nvcc``.
@@ -41,23 +42,54 @@ def nvcc_path() -> str:
     return path
 
 
+def _library_path(name: str) -> str:
+    """Where the library of ``csrc/<name>.cu`` goes: named by a hash of the
+    source, the shared headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def sources():
+    """Names of every ``csrc/<name>.cu``."""
+    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+
+
+def build_all(names=None):
+    """Compile every named source (default: all of ``csrc/``) whose
+    library is missing, one ``nvcc`` per source, all started together;
+    returns {name: library path}."""
+    names = sources() if names is None else list(names)
+    outs = {name: _library_path(name) for name in names}
+    procs = []
+    for name, out in outs.items():
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        src = os.path.join(CSRC, f"{name}.cu")
+        procs.append((name, out, tmp, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its library exists; returns the
     library's path."""
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    return out
+    return build_all([name])[name]
 
 
 def load(name: str, signatures) -> ctypes.CDLL:

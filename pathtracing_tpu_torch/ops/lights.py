@@ -1,17 +1,26 @@
 """Area-light table + sampling for next-event estimation (the JAX
-package's ``ops/lights.py``, triangle lights with small tables).
+package's ``ops/lights.py``).
 
-The table holds every emissive triangle, picked with probability ∝
-emitted power (luminance · area) by a power CDF; the point within the
-picked triangle is area-uniform, so the per-area pdf at a sample of light
-i is lum_i / total_power. The pick index equals the JAX package's: same
-CDF (built in float64 on the host, stored float32) and the same
-Σ(u > cum) count.
+The table holds every emissive primitive — triangles and spheres — picked
+with probability ∝ emitted power (luminance · area) by a power CDF; the
+point within a picked triangle is area-uniform, so the per-area pdf at a
+sample of light i is lum_i / total_power. Sphere rows are sampled by the
+visible-cap cone (``sample_solid_angle``), with an area-uniform fallback
+for a shading point inside the sphere. The pick index equals the JAX
+package's: same CDF (built in float64 on the host, stored float32) and the
+same Σ(u > cum) count.
 
-Not ported yet: emissive spheres (visible-cap cone sampling), textured
-emitters, the many-light gather mode (tables of ``_GATHER_MIN`` or more
-lights, which needs ROADMAP queue B row 3) and delta lights — all
-ROADMAP queue A item 11.
+Two selection modes, chosen by the table's size at build time. Small
+tables index their columns by the pick. Tables of ``_GATHER_MIN`` rows or
+more carry all sampler columns packed into one ``(L, 24)`` float32 table
+and fetch ONE packed row per ray through ``ops.pgather.gather_rows`` (the
+hand-written gather kernel on the card); their pick is
+``torch.searchsorted(cum, u, right=False)``, which equals the count
+exactly and avoids an (R, L) intermediate. Both modes copy rows exactly,
+so they agree bit for bit.
+
+Not ported yet: textured emitters (ROADMAP queue A item 12) and delta
+lights (item 11).
 """
 
 from __future__ import annotations
@@ -21,41 +30,59 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pathtracing_tpu_torch.ops import linalg
+from pathtracing_tpu_torch.ops import linalg, pgather
 
-_GATHER_MIN = 192  # the JAX package's switch to the gather-mode pick
+KIND_TRI = 0
+KIND_SPHERE = 1
+
+# Table size at which light selection switches to the searchsorted pick +
+# one packed-row gather (the JAX package's threshold).
+_GATHER_MIN = 192
+
+# Column layout of ``LightTable.packed`` ((L, 24) f32, built only for
+# gather-mode tables): slices for the vector columns, scalar indices for
+# kind/tex (small ints, exact in f32). The uv columns stay zero and tex
+# stays -1 until textured emitters are ported.
+_P_V0 = slice(0, 3)
+_P_E1 = slice(3, 6)
+_P_E2 = slice(6, 9)
+_P_NORMAL = slice(9, 12)
+_P_EMIT = slice(12, 15)
+_P_KIND = 15
+_P_TEX = 22
+_P_WIDTH = 24
 
 
 class LightTable(NamedTuple):
-    v0: torch.Tensor          # (L, 3) f32 triangle corner
-    e1: torch.Tensor          # (L, 3) f32 edge 1
-    e2: torch.Tensor          # (L, 3) f32 edge 2
-    normal: torch.Tensor      # (L, 3) f32 unit geometric normal
+    v0: torch.Tensor          # (L, 3) f32 triangle corner / sphere center
+    e1: torch.Tensor          # (L, 3) f32 edge 1 / (radius, 0, 0)
+    e2: torch.Tensor          # (L, 3) f32 edge 2 / zeros
+    normal: torch.Tensor      # (L, 3) f32 unit geometric normal (tri only)
     emit: torch.Tensor        # (L, 3) f32 radiance
+    # None when the table holds no sphere emitters: both samplers then
+    # skip the cone / area-sphere math.
+    kind: torch.Tensor        # (L,) i32 KIND_TRI | KIND_SPHERE, or None
     cum: torch.Tensor         # (L,)  f32 inclusive cumulative power fraction
     total_area: torch.Tensor  # () f32 — 0 means "no lights" (NEE no-op)
     total_power: torch.Tensor  # () f32 Σ luminance·area
+    # Gather mode (L >= _GATHER_MIN only): all sampler columns packed into
+    # one (L, _P_WIDTH) f32 table; None for small tables.
+    packed: torch.Tensor = None
 
 
 def build_light_table(v0, v1, v2, tri_mat, mat_type, mat_emit,
                       emissive_type: int, device, sph_center=None,
                       sph_radius=None, sph_mat=None) -> LightTable:
-    """Host-side (numpy) collection of the emissive triangles, uploaded to
-    ``device``."""
+    """Host-side (numpy) collection of the emissive triangles and spheres,
+    uploaded to ``device``."""
     v0 = np.asarray(v0, np.float32)
     v1 = np.asarray(v1, np.float32)
     v2 = np.asarray(v2, np.float32)
     tri_mat = np.asarray(tri_mat)
     types = np.asarray(mat_type)
     emits = np.asarray(mat_emit, np.float32)[tri_mat]
-    if sph_center is not None and len(sph_center):
-        sm = np.asarray(sph_mat)
-        sr = np.asarray(sph_radius, np.float32)
-        if ((types[sm] == emissive_type) & (sr > 1e-12)).any():
-            raise NotImplementedError(
-                "emissive spheres are not ported yet (ROADMAP queue A "
-                "item 11)"
-            )
+    # Select by TYPE only: the checker material reuses the emit columns as
+    # its second color and must not be classed as a light.
     sel = types[tri_mat] == emissive_type
     lv0, lv1, lv2 = v0[sel], v1[sel], v2[sel]
     lemit = emits[sel]
@@ -71,7 +98,33 @@ def build_light_table(v0, v1, v2, tri_mat, mat_type, mat_emit,
         lemit[keep],
     )
     normal = (n / np.maximum(norm[:, None], 1e-20)).astype(np.float32)
+    kind = np.zeros(lv0.shape[0], np.int32)
+    has_sphere = False
 
+    if sph_center is not None and len(sph_center):
+        sc = np.asarray(sph_center, np.float32)
+        sr = np.asarray(sph_radius, np.float32)
+        sm = np.asarray(sph_mat)
+        ssel = (types[sm] == emissive_type) & (sr > 1e-12)
+        if ssel.any():
+            has_sphere = True
+            k = int(ssel.sum())
+            lv0 = np.concatenate([lv0, sc[ssel]])
+            se1 = np.zeros((k, 3), np.float32)
+            se1[:, 0] = sr[ssel]
+            e1 = np.concatenate([e1, se1])
+            e2 = np.concatenate([e2, np.zeros((k, 3), np.float32)])
+            normal = np.concatenate([normal, np.zeros((k, 3), np.float32)])
+            lemit = np.concatenate(
+                [lemit, np.asarray(mat_emit, np.float32)[sm[ssel]]]
+            )
+            area = np.concatenate(
+                [area, 4.0 * np.pi * sr[ssel] * sr[ssel]]
+            )
+            kind = np.concatenate([kind, np.ones(k, np.int32)])
+
+    # Selection weight = emitted power (luminance · area), f64 so the
+    # all-equal-radiance case reduces to the area CDF bit-exactly.
     lum = (0.2126 * lemit[:, 0] + 0.7152 * lemit[:, 1]
            + 0.0722 * lemit[:, 2]).astype(np.float64)
     power = lum * area.astype(np.float64)
@@ -84,52 +137,161 @@ def build_light_table(v0, v1, v2, tri_mat, mat_type, mat_emit,
         zero3 = np.zeros((1, 3), np.float32)
         return LightTable(
             v0=dev(zero3), e1=dev(zero3), e2=dev(zero3), normal=dev(zero3),
-            emit=dev(zero3), cum=dev(np.ones(1, np.float32)),
+            emit=dev(zero3), kind=None, cum=dev(np.ones(1, np.float32)),
             total_area=dev(np.float32(0.0)),
             total_power=dev(np.float32(0.0)),
         )
-    if lv0.shape[0] >= _GATHER_MIN:
-        raise NotImplementedError(
-            f"{lv0.shape[0]} lights need the many-light gather mode, not "
-            "ported yet (ROADMAP queue A item 11, queue B row 3)"
-        )
     cum = np.cumsum(power) / total_power
+    packed = None
+    if lv0.shape[0] >= _GATHER_MIN:
+        pk = np.zeros((lv0.shape[0], _P_WIDTH), np.float32)
+        pk[:, _P_V0] = lv0
+        pk[:, _P_E1] = e1
+        pk[:, _P_E2] = e2
+        pk[:, _P_NORMAL] = normal
+        pk[:, _P_EMIT] = lemit
+        pk[:, _P_KIND] = kind
+        pk[:, _P_TEX] = -1.0
+        packed = dev(pk)
     return LightTable(
         v0=dev(lv0), e1=dev(e1), e2=dev(e2), normal=dev(normal),
-        emit=dev(lemit), cum=dev(cum.astype(np.float32)),
+        emit=dev(lemit),
+        kind=dev(kind, torch.int32) if has_sphere else None,
+        cum=dev(cum.astype(np.float32)),
         total_area=dev(np.float32(float(area.sum()))),
         total_power=dev(np.float32(total_power)),
+        packed=packed,
     )
 
 
 def pick(lights: LightTable, u0):
-    """Power-CDF light pick: index = Σ(u0 > cum), clipped to [0, L-1]
-    (the JAX small-table branch of ``_pick_and_select``)."""
+    """Power-CDF light pick, clipped to [0, L-1]: the count Σ(u0 > cum)
+    for small tables, ``searchsorted`` (the identical index, with no
+    (R, L) intermediate) for gather-mode tables."""
     n_lights = lights.cum.shape[0]
-    idx = torch.sum((u0[:, None] > lights.cum[None, :]).to(torch.int64),
-                    dim=1)
+    if lights.packed is not None:
+        idx = torch.searchsorted(lights.cum, u0.contiguous(), right=False)
+    else:
+        idx = torch.sum((u0[:, None] > lights.cum[None, :]).to(torch.int64),
+                        dim=1)
     return torch.clamp(idx, 0, n_lights - 1)
+
+
+def _pick_and_select(lights: LightTable, u0):
+    """The picked rows' columns: (v0, e1, e2, normal, emit, kind), each
+    (R, 3) f32 and kind (R,) i32 or None. Gather-mode tables fetch ONE
+    packed row per ray through ``pgather.gather_rows``; small tables index
+    each column. Both are exact copies of the same rows."""
+    idx = pick(lights, u0)
+    if lights.packed is not None:
+        rows = pgather.gather_rows(lights.packed, idx)        # (R, W)
+        kind = None
+        if lights.kind is not None:
+            kind = rows[:, _P_KIND].to(torch.int32)
+        return (rows[:, _P_V0], rows[:, _P_E1], rows[:, _P_E2],
+                rows[:, _P_NORMAL], rows[:, _P_EMIT], kind)
+    kind = None if lights.kind is None else lights.kind[idx]
+    return (lights.v0[idx], lights.e1[idx], lights.e2[idx],
+            lights.normal[idx], lights.emit[idx], kind)
+
+
+def _triangle_point(v0, e1, e2, u):
+    """Area-uniform point by sqrt-warped barycentrics."""
+    su = torch.sqrt(torch.clamp(u[:, 1:2], min=1e-12))
+    a = 1.0 - su
+    b = su * u[:, 2:3]
+    return v0 + a * e1 + b * e2
+
+
+def _sphere_direction(u):
+    """Area-uniform unit direction on the sphere and its azimuth."""
+    z = 1.0 - 2.0 * u[:, 1]
+    rxy = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * torch.pi * u[:, 2]
+    dir_s = torch.stack([rxy * torch.cos(phi), rxy * torch.sin(phi), z],
+                        dim=1)
+    return dir_s, phi
+
+
+def sample(lights: LightTable, u):
+    """Power-weighted light pick, area-uniform point within it.
+
+    u: (R, 3) uniforms. Returns (point (R,3), normal (R,3), emit (R,3));
+    the per-area pdf at the point is ``luminance(emit) / total_power``."""
+    v0, e1, e2, normal, emit, kind = _pick_and_select(lights, u[:, 0])
+    p_tri = _triangle_point(v0, e1, e2, u)
+    if kind is None:
+        return p_tri, normal, emit
+    is_sph = (kind == KIND_SPHERE)[:, None]
+    # Sphere: v0 = center, e1.x = radius.
+    dir_s, _ = _sphere_direction(u)
+    p_sph = v0 + e1[:, 0:1] * dir_s
+    return (torch.where(is_sph, p_sph, p_tri),
+            torch.where(is_sph, dir_s, normal), emit)
 
 
 def sample_solid_angle(lights: LightTable, u, origin):
     """NEE light sample with its per-solid-angle pdf.
 
     u: (R, 3) uniforms; origin: (R, 3) shading points. Returns
-    (point (R,3), normal (R,3), emit (R,3), pdf_sa (R,)), with
-    pdf_sa = dist² · lum / (cosθ_l · total_power)."""
-    idx = pick(lights, u[:, 0])
-    v0, e1, e2 = lights.v0[idx], lights.e1[idx], lights.e2[idx]
-    normal, emit = lights.normal[idx], lights.emit[idx]
-
-    su = torch.sqrt(torch.clamp(u[:, 1:2], min=1e-12))
-    a = 1.0 - su
-    b = su * u[:, 2:3]
-    point = v0 + a * e1 + b * e2
-
+    (point (R,3), normal (R,3), emit (R,3), pdf_sa (R,)). Triangles and
+    the inside-a-sphere fallback use the area law,
+    pdf_sa = dist² · lum / (cosθ_l · total_power); a sphere seen from
+    outside is sampled uniformly inside the cone it subtends, with
+    pdf_sa = 2 · lum · r² / (total_power · (1 − cosθmax)) and
+    1 − cosθmax computed as sin²θmax / (1 + cosθmax) so that small
+    far-away lamps do not cancel to zero in f32."""
+    v0, e1, e2, normal, emit, kind = _pick_and_select(lights, u[:, 0])
+    point = _triangle_point(v0, e1, e2, u)
     lum = linalg.luminance(emit)
+    cone = None
+    if kind is not None:
+        is_sph = kind == KIND_SPHERE
+        dir_s, phi = _sphere_direction(u)
+        p_area = v0 + e1[:, 0:1] * dir_s
+
+        # Visible-cap cone. The frame axis points from the center to the
+        # shading point; α is the polar angle of the sampled normal.
+        rad = e1[:, 0]
+        ro = origin - v0
+        dc2 = torch.sum(ro * ro, dim=-1)
+        dc = torch.sqrt(torch.clamp(dc2, min=1e-20))
+        outside = dc2 > rad * rad * 1.0002
+        sin2max = torch.clamp(rad * rad / torch.clamp(dc2, min=1e-20),
+                              0.0, 1.0)
+        cosmax = torch.sqrt(torch.clamp(1.0 - sin2max, min=0.0))
+        one_minus = sin2max / (1.0 + cosmax)
+        cost = 1.0 - u[:, 1] * one_minus
+        sin2t = torch.clamp(1.0 - cost * cost, min=0.0)
+        ds = dc * cost - torch.sqrt(
+            torch.clamp(rad * rad - dc2 * sin2t, min=0.0))
+        cosa = torch.clamp(
+            (dc2 + rad * rad - ds * ds)
+            / torch.clamp(2.0 * dc * rad, min=1e-20),
+            -1.0, 1.0,
+        )
+        sina = torch.sqrt(torch.clamp(1.0 - cosa * cosa, min=0.0))
+        w_axis = ro / dc[:, None]
+        t1, t2 = linalg.orthonormal_basis(w_axis)
+        n_cone = ((sina * torch.cos(phi))[:, None] * t1
+                  + (sina * torch.sin(phi))[:, None] * t2
+                  + cosa[:, None] * w_axis)
+        p_cone = v0 + rad[:, None] * n_cone
+
+        cone = is_sph & outside
+        point = torch.where(cone[:, None], p_cone,
+                            torch.where(is_sph[:, None], p_area, point))
+        normal = torch.where(
+            is_sph[:, None], torch.where(cone[:, None], n_cone, dir_s),
+            normal)
+        pdf_cone = (2.0 * lum * rad * rad
+                    / (lights.total_power * one_minus + 1e-20))
+
     wi_vec = point - origin
     dist2 = linalg.dot(wi_vec, wi_vec)
     dist = torch.sqrt(torch.clamp(dist2, min=1e-12))
     cos_l = torch.abs(linalg.dot(normal, wi_vec / dist[:, None]))
     pdf_sa = dist2 * lum / (cos_l * lights.total_power + 1e-20)
+    if cone is not None:
+        pdf_sa = torch.where(cone, pdf_cone, pdf_sa)
     return point, normal, emit, pdf_sa

@@ -1,15 +1,16 @@
 """Branchless BSDF table (the JAX package's ``ops/materials.py``): the
-Lambertian, checker, metal, GGX, dielectric and emissive lobes that the
-flagship path reaches. Every lobe is evaluated for every ray and the
-result selected by material type.
+Lambertian, checker, metal, GGX, dielectric, emissive and principled
+(metallic-roughness, with clearcoat) lobes. Every lobe is evaluated for
+every ray and the result selected by material type.
 
 Materials are an SoA table indexed by ``mat_id``:
   mat_type (K,) int32, mat_albedo (K,3) f32, mat_param (K,) f32
-  (metal fuzz / GGX alpha / dielectric IOR), mat_emit (K,3) f32.
+  (metal fuzz / GGX alpha / dielectric IOR / principled perceptual
+  roughness), mat_emit (K,3) f32; scenes with a principled material also
+  carry mat_metallic (K,) and, with a coat, mat_clearcoat (K, 2).
 
-The rough dielectric, dispersion, principled and anisotropic lobes are
-not ported yet (ROADMAP queue A item 11); ``scatter`` raises when asked
-for them.
+The rough dielectric, dispersion and anisotropic lobes are not ported yet
+(ROADMAP queue A item 11); ``scatter`` raises when asked for them.
 """
 
 from __future__ import annotations
@@ -97,6 +98,82 @@ def ggx_sample(alpha, normal, d_in, u1, u2):
     return d_out, cos_h, linalg.dot(-d_in, h)
 
 
+def _principled_parts(base, metallic, rough):
+    """(F0, diffuse color, GGX alpha) of the metallic-roughness model:
+    F0 = lerp(0.04, base, metallic), diffuse = base·(1−metallic),
+    alpha = roughness²."""
+    m = metallic[..., None]
+    f0 = 0.04 * (1.0 - m) + base * m
+    dif = base * (1.0 - m)
+    alpha = torch.clamp(rough * rough, min=GGX_MIN_ALPHA)
+    return f0, dif, alpha
+
+
+def _principled_pspec(f0, dif, cos_v):
+    """Specular-lobe selection probability: luminance of the view Fresnel
+    against the diffuse color, clamped so neither lobe starves. A function
+    of (material, view) only, so the sampler and the mixture pdf share
+    it."""
+    fres = f0 + (1.0 - f0) * _schlick5(cos_v)[..., None]
+    ls = linalg.luminance(fres)
+    ld = linalg.luminance(dif)
+    return torch.clamp(ls / torch.clamp(ls + ld, min=1e-12), 0.05, 1.0)
+
+
+_CC_F0 = 0.04   # clearcoat IOR is fixed at 1.5 (the glTF convention)
+
+
+def _fc_scalar(cos_x):
+    """Schlick Fresnel at the clearcoat's fixed F0 = 0.04."""
+    return _CC_F0 + (1.0 - _CC_F0) * _schlick5(cos_x)
+
+
+def _principled_weights(f0, dif, cos_v, cc):
+    """Three-way lobe-pick probabilities (clearcoat, base specular; the
+    rest is diffuse). ``cc`` (...,) is the clearcoat strength: 0 rows
+    reduce exactly to the two-lobe split."""
+    fres = f0 + (1.0 - f0) * _schlick5(cos_v)[..., None]
+    ls = linalg.luminance(fres)
+    ld = linalg.luminance(dif)
+    lc = cc * _fc_scalar(cos_v)
+    tot = torch.clamp(ls + ld + lc, min=1e-12)
+    p_cc = lc / tot
+    p_s = torch.clamp(ls / tot, min=0.05 * (1.0 - p_cc)).clamp(max=1.0)
+    return p_cc, p_s
+
+
+def principled_eval(base, metallic, rough, normal, view, light,
+                    clearcoat=None):
+    """The principled BSDF toward ``light`` (the NEE arm). Returns
+    (f (...,3), pdf (...,)): f = diffuse/π + GGX specular (+ the clearcoat
+    layer when ``clearcoat`` (..., 2) [strength, roughness] is given: a
+    second GGX at fixed F0 = 0.04 whose view and light Fresnel attenuate
+    the base), pdf = the lobe-pick mixture ``scatter`` samples from."""
+    f0, dif, alpha = _principled_parts(base, metallic, rough)
+    f_spec, pdf_spec = ggx_eval(f0, alpha, normal, view, light)
+    cos_l = linalg.dot(normal, light)
+    cos_v = linalg.dot(normal, view)
+    f = dif * INV_PI + f_spec
+    cos_lp = torch.clamp(cos_l, min=0.0)
+    if clearcoat is None:
+        p_s = _principled_pspec(f0, dif, cos_v)
+        pdf = p_s * pdf_spec + (1.0 - p_s) * cos_lp * INV_PI
+    else:
+        cc = clearcoat[..., 0]
+        alpha_cc = torch.clamp(clearcoat[..., 1] * clearcoat[..., 1],
+                               min=GGX_MIN_ALPHA)
+        f_cc, pdf_cc = ggx_eval(_CC_F0 * torch.ones_like(dif), alpha_cc,
+                                normal, view, light)
+        atten = ((1.0 - cc * _fc_scalar(cos_v))
+                 * (1.0 - cc * _fc_scalar(cos_lp)))
+        f = f * atten[..., None] + cc[..., None] * f_cc
+        p_cc, p_s = _principled_weights(f0, dif, cos_v, cc)
+        pdf = (p_cc * pdf_cc + p_s * pdf_spec
+               + (1.0 - p_cc - p_s) * cos_lp * INV_PI)
+    ok = (cos_l > 1e-6) & (cos_v > 1e-6)
+    return torch.where(ok[..., None], f, 0.0), torch.where(ok, pdf, 0.0)
+
+
 def effective_albedo(mat_type, albedo, param, emit, position):
     """Surface color at a hit (procedural checker evaluated here)."""
     freq = torch.clamp(param, min=1e-6)[..., None]
@@ -115,12 +192,15 @@ def scatter(mat_type, albedo, param, emit, normal, d_in, front_face, u,
             param2=None, disp=None, throughput=None, metallic=None,
             clearcoat=None, aniso=None):
     """Sample the BSDF for a batch of hits (branchless; see the JAX
-    ``scatter``). ``u`` is (..., 5) uniforms. Returns (d_out, attenuation,
-    scattered, pdf) with pdf 0 for delta lobes."""
-    if any(x is not None for x in (param2, disp, metallic, clearcoat, aniso)):
+    ``scatter``). ``u`` is (..., 5) uniforms. ``metallic`` (...,) is the
+    metallic column of TYPE_PRINCIPLED rows (None for scenes without one:
+    the lobe is then never built) and ``clearcoat`` (..., 2) their
+    [strength, roughness] coat column (needs ``metallic``). Returns
+    (d_out, attenuation, scattered, pdf) with pdf 0 for delta lobes."""
+    if any(x is not None for x in (param2, disp, aniso)):
         raise NotImplementedError(
-            "rough glass, dispersion, principled and anisotropic lobes are "
-            "not ported yet (ROADMAP queue A item 11)"
+            "rough glass, dispersion and anisotropic lobes are not ported "
+            "yet (ROADMAP queue A item 11)"
         )
     d_diffuse = sampling.cosine_hemisphere(normal, u[..., 0], u[..., 1])
     pdf_diffuse = torch.clamp(linalg.dot(normal, d_diffuse), min=1e-6) * INV_PI
@@ -177,6 +257,41 @@ def scatter(mat_type, albedo, param, emit, normal, d_in, front_face, u,
     )
     pdf = torch.where(is_diffuse, pdf_diffuse,
                       torch.where(is_ggx, pdf_ggx, 0.0))
+
+    if metallic is not None:
+        # Principled: pick diffuse vs GGX specular (vs clearcoat) by u[2],
+        # which the diffuse and GGX lobes leave unused; the same (u0, u1)
+        # drive every candidate direction, and the weight is f·cos/pdf
+        # with the mixture pdf.
+        f0_p, dif_p, alpha_p = _principled_parts(albedo, metallic, param)
+        d_spec, _, _ = ggx_sample(alpha_p, normal, d_in, u[..., 0], u[..., 1])
+        if clearcoat is None:
+            p_s = _principled_pspec(f0_p, dif_p, cos_v)
+            d_pr = torch.where((u[..., 2] < p_s)[..., None], d_spec,
+                               d_diffuse)
+        else:
+            alpha_cc = torch.clamp(clearcoat[..., 1] * clearcoat[..., 1],
+                                   min=GGX_MIN_ALPHA)
+            d_cc, _, _ = ggx_sample(alpha_cc, normal, d_in, u[..., 0],
+                                    u[..., 1])
+            p_cc, p_s = _principled_weights(f0_p, dif_p, cos_v,
+                                            clearcoat[..., 0])
+            lobe = u[..., 2]
+            d_pr = torch.where(
+                (lobe < p_cc)[..., None], d_cc,
+                torch.where((lobe < p_cc + p_s)[..., None], d_spec,
+                            d_diffuse),
+            )
+        f_pr, pdf_pr = principled_eval(albedo, metallic, param, normal, view,
+                                       d_pr, clearcoat=clearcoat)
+        cos_op = linalg.dot(normal, d_pr)
+        pr_ok = (cos_op > 1e-6) & (cos_v > 1e-6) & (pdf_pr > 1e-9)
+        w_pr = f_pr * (cos_op / torch.clamp(pdf_pr, min=1e-12))[..., None]
+        is_pr = mat_type == TYPE_PRINCIPLED
+        d_out = torch.where(is_pr[..., None], d_pr, d_out)
+        attenuation = torch.where(is_pr[..., None], w_pr, attenuation)
+        scattered = torch.where(is_pr, pr_ok, scattered)
+        pdf = torch.where(is_pr, pdf_pr, pdf)
     return d_out, attenuation, scattered, pdf
 
 

@@ -91,9 +91,36 @@ def test_no_jax_or_reference_imports_in_source():
 
 def test_cuda_sources_are_not_built_on_import():
     assert cuda_build._LOADED == {}
-    assert sorted(os.listdir(cuda_build.CSRC)) == ["cluster_trace.cu"]
+    assert sorted(os.listdir(cuda_build.CSRC)) == [
+        "cluster_common.cuh", "cluster_trace.cu", "cluster_trace_inst.cu",
+        "pgather.cu"]
+    assert cuda_build.sources() == ["cluster_trace", "cluster_trace_inst",
+                                    "pgather"]
     with open(os.path.join(ROOT, ".gitignore")) as f:
         assert "pathtracing_tpu_torch/.build/" in f.read().split()
+
+
+def test_library_name_follows_source_headers_and_flags(tmp_path,
+                                                       monkeypatch):
+    """An edited source, shared header or flag set gives another library
+    name, so a stale build is never loaded."""
+    monkeypatch.setattr(cuda_build, "CSRC", str(tmp_path))
+    (tmp_path / "a.cu").write_text("// a")
+    (tmp_path / "b.cu").write_text("// b")
+    (tmp_path / "common.cuh").write_text("// h")
+    assert cuda_build.sources() == ["a", "b"]
+    names = {n: cuda_build._library_path(n) for n in ("a", "b")}
+    assert names["a"] != names["b"]
+    assert os.path.dirname(names["a"]) == cuda_build.BUILD_DIR
+    (tmp_path / "common.cuh").write_text("// h2")
+    assert all(cuda_build._library_path(n) != names[n] for n in names)
+    (tmp_path / "common.cuh").write_text("// h")
+    assert cuda_build._library_path("a") == names["a"]
+    (tmp_path / "a.cu").write_text("// a2")
+    assert cuda_build._library_path("a") != names["a"]
+    assert cuda_build._library_path("b") == names["b"]
+    monkeypatch.setattr(cuda_build, "NVCC_FLAGS", ("-O0",))
+    assert cuda_build._library_path("b") != names["b"]
 
 
 @pytest.fixture
@@ -141,6 +168,8 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         cluster_trace.occluded(cl, o, o, t)
     assert cluster_trace.LAUNCHES == before
+    assert set(before) == {"trace", "occluded", "trace_inst",
+                           "occluded_inst"}
 
 
 def test_unported_traversal_modes_raise():
