@@ -27,9 +27,28 @@ Phases, in order; any failure exits non-zero:
                  bit, for the many-light scene's (288, 24) packed table
                  and the 2,073,600 indices of a real light pick, and for
                  awkward shapes (one row, odd widths, one index, an
-                 unaligned table, indices below 0 and past the table).
+                 unaligned table, indices below 0 and past the table);
+               * big scenes: cornell_mesh(8) (1.3 M triangles, 8 pages of
+                 2,048 clusters), built through ``scenes.cornell_mesh``.
+                 The paged sweep on its camera, bounce and both shadow
+                 waves; the tree walks on the unpaged ClusterSet of the
+                 same triangles (closest hit on the camera and bounce
+                 waves, any hit on the shadow waves) and on the paged set
+                 (per-page walk); the paged sweep again on the same
+                 triangles paged by 1,536 (two shared-memory chunks of
+                 boxes a page). Each kernel runs and is timed on the whole
+                 wave; it is held bit for bit against its plain version,
+                 and under the tie contract against ``trace_torch``, on
+                 65,549 rays drawn from the wave (the plain versions
+                 synchronise with the host once per cluster or walk step).
+               Each traversal kernel's bound counts the cluster
+               evaluations its wave needs in any visiting order
+               (``needed_evals``, a slab-test pass over the whole wave
+               against the final t), so kernels of one query share it.
   4. renders — the flagship (cornell_mesh(6)), instanced_demo (gradient
-               sky) and many_lights_demo, each at 1920x1080, depth 8, NEE
+               sky), many_lights_demo, cornell_mesh(8) (paged) and the
+               same triangles unpaged in a scene without pages (which
+               routes to the tree walks), each at 1920x1080, depth 8, NEE
                with MIS, LD sampler, 1 spp per progressive step, seed 0:
                one warm-up step and 3 timed steps through
                ``progressive.render_step``, then ``resolve`` and one
@@ -37,13 +56,17 @@ Phases, in order; any failure exits non-zero:
                before a scene's timed steps and read just after: the
                flagship must launch the flat pair, the instanced scene the
                instanced pair and no flat kernel, the many-light scene the
-               gather.
+               gather, cornell_mesh(8) the paged sweep and no flat kernel,
+               the unpaged one both tree walks and neither the flat nor the
+               paged kernels.
   5. check   — each image is finite with a plausible mean, and a small
-               64x64 render of each scene through the kernels agrees with
-               the same render through the plain versions.
+               render of each scene through the kernels agrees with the
+               same render through the plain versions: 64x64 for the
+               earlier scenes and for cornell_mesh(3) paged by 16; 32x32
+               at depth 4 for the unpaged cornell_mesh(8).
 
 It prints one JSON line per kernel result, a ``{"kernels": [...]}`` line
-with all five kernels, the card's name and power limit, and as its last
+with all nine kernels, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. It imports nothing of JAX. Without
 a CUDA device, or without the package beside it, it exits non-zero and
 prints no result.
@@ -90,6 +113,11 @@ XFORM_OPS, MOTION_XFORM_OPS = 30, 30 + 36 + 27 + 5 + 3 + 9 + 18
 EXP_BYTES, IMAT_BYTES, MOTION_EXTRA_BYTES = 76, 4, 48
 GATHER_SHAPE = (288, 24, WIDTH * HEIGHT)   # (L, W, N) of the many-light pick
 TPU_SOURCE = "pathtracing_tpu/ops/cluster_trace.py"
+BIG_SUBDIVISIONS = 8         # cornell_mesh(8): 14,736 clusters, 8 pages
+BIG_SUBSET = 65_549          # rays of a big-scene wave held against plain
+FORCED_PAGE = 1536           # a page of two shared-memory box chunks
+# Tree-node bytes: box 24, meta 8, the 16 octant links 64.
+NODE_BYTES = 96
 
 
 class SmokeFailure(RuntimeError):
@@ -257,21 +285,71 @@ def make_motion_demo(seed=11):
     return b.build(DEVICE)
 
 
-def bound_ms(stats, n_rays, n_clusters, ray_bytes, n_exp=0, motion=False):
-    """Least time for a wave: the Woop tests its rays need (each (ray,
-    cluster) pair whose box the ray pierces closer than its best hit so
-    far, times the cluster's 128 triangles, plus for an instanced scene
-    the transform of the ray into that pair's object space) over the
-    float32 peak, or its bytes (rays in, results out, the prototype
-    cluster tables and the ``n_exp`` expanded-cluster rows once) over HBM
-    bandwidth, whichever is larger. The slab tests of the kernel's
-    brute-force box sweep are a cost of that algorithm, not of the query,
+def needed_evals(aabb_min, aabb_max, wave, t_final, occluded=None,
+                 chunk_elems=1 << 25):
+    """Cluster evaluations a wave needs, whatever order a kernel visits
+    the boxes in: for each live ray of a closest-hit query, the boxes it
+    pierces (the plain versions' slab test) before its final t
+    (``t_final``, the query's result), and at least one for a ray that
+    hit (the winner, whose box a flat wall's hit may touch only at t
+    itself); for an any-hit query (``occluded``, its (R,) result), the
+    boxes an unoccluded ray pierces before its cap and one for an
+    occluded ray. Any visiting order must evaluate at least these, since a
+    ray's best t never drops below its final t. ``aabb_min``/``aabb_max``:
+    the real clusters' (C, 3) boxes (expanded clusters' world boxes for an
+    instanced scene). Slab tests run in chunks of about ``chunk_elems``
+    (ray, box) pairs."""
+    import torch
+
+    from pathtracing_tpu_torch.ops import cluster_trace as ct
+
+    origin, direction, t_init = wave[:3]
+    live = t_init > 0
+    cap = t_final
+    total = torch.zeros((), dtype=torch.int64, device=origin.device)
+    if occluded is not None:
+        total += (live & occluded).sum()
+        live = live & ~occluded
+        hit_ray = torch.zeros_like(live)
+    else:
+        hit_ray = live & (t_final < t_init)
+    inv_d = ct._safe_inv(direction)
+    step = max(1, chunk_elems // aabb_min.shape[0])
+    for s in range(0, origin.shape[0], step):
+        o, iv = origin[s:s + step], inv_d[s:s + step]
+        tn = tf = None
+        for ax in range(3):
+            t0 = (aabb_min[:, ax] - o[:, ax, None]) * iv[:, ax, None]
+            t1 = (aabb_max[:, ax] - o[:, ax, None]) * iv[:, ax, None]
+            lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+            tn = torch.clamp(lo, min=-3.0e38) if tn is None else (
+                torch.maximum(tn, lo))
+            tf = torch.clamp(hi, max=3.0e38) if tf is None else (
+                torch.minimum(tf, hi))
+        pierced = ((tn <= tf) & (tf > ct.T_MIN)
+                   & (tn < cap[s:s + step, None]) & live[s:s + step, None])
+        per_ray = pierced.sum(dim=1)
+        total += torch.where(hit_ray[s:s + step],
+                             torch.clamp(per_ray, min=1), per_ray).sum()
+    return int(total)
+
+
+def bound_ms(evals, n_rays, n_clusters, ray_bytes, n_exp=0, motion=False,
+             table_bytes=None):
+    """Least time for a wave: the Woop tests its rays need (``evals``,
+    the (ray, cluster) pairs of ``needed_evals``, times the cluster's 128
+    triangles, plus for an instanced scene the transform of the ray into
+    that pair's object space) over the float32 peak, or its bytes (rays
+    in, results out, the prototype cluster tables and the ``n_exp``
+    expanded-cluster rows once, or ``table_bytes`` where given) over HBM
+    bandwidth, whichever is larger. The slab tests of the kernel's box
+    sweep or tree walk are a cost of that algorithm, not of the query,
     and stay out."""
     closest = ray_bytes > 33
     per_pair = CLUSTER_SIZE * TRI_OPS
     if n_exp:
         per_pair += MOTION_XFORM_OPS if motion else XFORM_OPS
-    ops = stats["cluster_evals"] * per_pair
+    ops = evals * per_pair
     table = n_clusters * (WOOP_BYTES + (
         NORMAL_BYTES + MAT_BYTES if closest else 0))
     if n_exp:
@@ -279,6 +357,8 @@ def bound_ms(stats, n_rays, n_clusters, ray_bytes, n_exp=0, motion=False):
                           + (MOTION_EXTRA_BYTES if motion else 0))
     else:
         table += n_clusters * BOX_BYTES
+    if table_bytes is not None:
+        table = table_bytes
     nbytes = n_rays * (ray_bytes + (4 if motion else 0)) + table
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -286,62 +366,114 @@ def bound_ms(stats, n_rays, n_clusters, ray_bytes, n_exp=0, motion=False):
                                  else "bytes"), ops, nbytes
 
 
-def check_trace(kernel, plain, wave, chunk=PLAIN_CHUNK, strict=False):
+def held_rays(wave, sub):
+    """The wave's per-ray arrays on the rays ``sub`` (all rays: None)."""
+    return wave if sub is None else tuple(a[sub] for a in wave)
+
+
+def check_trace(kernel, plain, wave, chunk=PLAIN_CHUNK, strict=False,
+                normal_tol=1e-6, sub=None, reference=None, shadow=False,
+                boxes=None):
     """A closest-hit kernel against its plain version on one wave.
     ``kernel(*wave)`` and ``plain(*wave, stats=...)`` take the wave's
-    per-ray arrays (origin, direction, t_init[, time]). Default: the tie
-    contract (t within rtol 1e-6 on live lanes, slot equal or t tied,
+    per-ray arrays (origin, direction, t_init[, time]). The kernel runs
+    and is timed on the whole wave; the plain version runs on the rays
+    ``sub`` of it (default all), where the two are compared. Default: the
+    tie contract (t within rtol 1e-6 on live lanes, slot equal or t tied,
     normals within 1e-4 and materials equal where the slots agree).
     ``strict``: t, slot and material equal on every lane and normals
-    within 1e-6 (``normal_bit_diffs`` counts the rays whose normal is not
-    bit-equal)."""
+    within ``normal_tol`` (``normal_bit_diffs`` counts the rays whose
+    normal is not bit-equal). ``reference(o, d, t)``: a second
+    closest-hit function (``trace_torch``) that the kernel must meet under
+    the tie contract on the same rays (``tie_mismatches``; ``shadow``:
+    equal in ``slot >= 0`` too). ``boxes``: (aabb_min, aabb_max) of the
+    real clusters, to count the evaluations the wave needs
+    (``needed_evals``, for the bound)."""
     import torch
 
     t0 = wave[2]
     kernel(*wave)                                # warm-up launch
-    ms, (tk, sk, nk, mk) = cuda_ms(lambda: kernel(*wave), KERNEL_REPS)
+    ms, out_k = cuda_ms(lambda: kernel(*wave), KERNEL_REPS)
+    rays = held_rays(wave, sub)
+    tk, sk, nk, mk = held_rays(out_k, sub)
     stats = {}
     plain_ms, (tp, sp, np_, mp) = cuda_ms(
-        lambda: in_chunks(plain, wave, stats, chunk))
-    live = t0 > 0
+        lambda: in_chunks(plain, rays, stats, chunk))
+    live = rays[2] > 0
     n_err = (nk - np_).abs().amax(dim=1)
     if strict:
         hit = sp >= 0
-        bad = (tk != tp) | (sk != sp) | (mk != mp) | (n_err > 1e-6)
+        bad = (tk != tp) | (sk != sp) | (mk != mp) | (n_err > normal_tol)
     else:
-        same_slot = sk == sp
-        tie = tk == tp
-        t_ok = torch.isclose(tk, tp, rtol=1e-6, atol=0.0) | ~live
-        slot_ok = same_slot | tie | ~live
-        hit = same_slot & live & (sp >= 0)
-        normal_ok = (n_err <= 1e-4) | ~hit
-        mat_ok = (mk == mp) | ~hit
-        bad = ~(t_ok & slot_ok & normal_ok & mat_ok)
+        hit = (sk == sp) & live & (sp >= 0)
+        bad = ~tie_ok((tp, sp, np_, mp), (tk, sk, nk, mk), live)
     err = torch.where(live, (tk - tp).abs(), 0.0)
-    return {
-        "rays": int(t0.shape[0]), "live": int(live.sum()),
+    res = {
+        "rays": int(t0.shape[0]), "live": int((t0 > 0).sum()),
         "hits": int((sp >= 0).sum()), "mismatches": int(bad.sum()),
         "max_abs_err": float(err.max()),
         "max_normal_err": float(torch.where(hit, n_err, 0.0).max()),
         "normal_bit_diffs": int((hit & (n_err > 0)).sum()),
         "ms": ms, "plain_ms": plain_ms, "stats": stats,
     }
+    if sub is not None:
+        res["plain_rays"] = int(sub.shape[0])
+    if reference is not None:
+        ref = reference(*rays)
+        tie_bad = ~tie_ok(ref, (tk, sk, nk, mk), live)
+        if shadow:
+            tie_bad = tie_bad | ((sk >= 0) != (ref[1] >= 0))
+        res["tie_mismatches"] = int(tie_bad.sum())
+    if boxes is not None:
+        res["needed_evals"] = needed_evals(*boxes, wave, out_k[0])
+    return res
 
 
-def check_occluded(kernel, plain, wave, chunk=PLAIN_CHUNK):
-    """An any-hit kernel against its plain version: occlusion equal."""
+def tie_ok(ref, new, live):
+    """(R,) bool: where the closest-hit result ``new`` meets the tie
+    contract against ``ref``: t within rtol 1e-6 on live lanes, slot equal
+    or t tied, normals within 1e-4 and materials equal where the slots
+    agree."""
+    import torch
+
+    (tr, sr, nr, mr), (tn, sn, nn, mn) = ref, new
+    same_slot = sn == sr
+    t_ok = torch.isclose(tn, tr, rtol=1e-6, atol=0.0) | ~live
+    slot_ok = same_slot | (tn == tr) | ~live
+    hit = same_slot & live & (sr >= 0)
+    normal_ok = ((nn - nr).abs().amax(dim=1) <= 1e-4) | ~hit
+    mat_ok = (mn == mr) | ~hit
+    return t_ok & slot_ok & normal_ok & mat_ok
+
+
+def check_occluded(kernel, plain, wave, chunk=PLAIN_CHUNK, sub=None,
+                   reference=None, boxes=None):
+    """An any-hit kernel against its plain version: occlusion equal on the
+    rays ``sub`` (default all), and equal to ``reference``'s
+    ``slot >= 0`` there when given. ``boxes`` as in ``check_trace``."""
     cap = wave[2]
     kernel(*wave)                                # warm-up launch
     ms, occ_k = cuda_ms(lambda: kernel(*wave), KERNEL_REPS)
+    rays = held_rays(wave, sub)
+    occ_held = occ_k if sub is None else occ_k[sub]
     stats = {}
-    plain_ms, occ_p = cuda_ms(lambda: in_chunks(plain, wave, stats, chunk))
-    bad = occ_k != occ_p
-    return {
+    plain_ms, occ_p = cuda_ms(lambda: in_chunks(plain, rays, stats, chunk))
+    bad = occ_held != occ_p
+    res = {
         "rays": int(cap.shape[0]), "live": int((cap > 0).sum()),
         "occluded": int(occ_p.sum()), "mismatches": int(bad.sum()),
         "max_abs_err": float(bad.float().max()),
         "ms": ms, "plain_ms": plain_ms, "stats": stats,
     }
+    if sub is not None:
+        res["plain_rays"] = int(sub.shape[0])
+    if reference is not None:
+        res["tie_mismatches"] = int(
+            (occ_held != (reference(*rays)[1] >= 0)).sum())
+    if boxes is not None:
+        res["needed_evals"] = needed_evals(*boxes, wave, cap,
+                                           occluded=occ_k)
+    return res
 
 
 def flat_fns(clusters):
@@ -379,8 +511,11 @@ def inst_fns(clusters, inst):
 def report(kname, res, failures, **extra):
     print(kname + " " + json.dumps({**extra, **{
         k: v for k, v in res.items() if k != "stats"}}), flush=True)
-    if res["mismatches"]:
-        failures.append(f"{kname} {extra}: {res['mismatches']} rays")
+    if res["mismatches"] or res.get("tie_mismatches"):
+        failures.append(f"{kname} {extra}: {res['mismatches']} rays "
+                        f"against the plain version, "
+                        f"{res.get('tie_mismatches', 0)} against "
+                        "trace_torch")
 
 
 def check_gather(table, idx, label, failures, timed=False):
@@ -553,30 +688,41 @@ def timed_render(label, scene, camera, config, card, kernel_names):
     return image, launches
 
 
-def small_render_check(label, scene, plain_scene, cam_cfg, background):
-    """A 64x64 render through the kernels against the same render through
-    the plain versions (``plain_scene`` with ``traversal="cluster_torch"``).
-    Both routes compute the same t bit for bit (--fmad=false), so only a
-    tie resolved to another triangle can part two paths."""
+def small_render_check(label, scene, plain_scene, cam_cfg, background,
+                       size=64, depth=DEPTH):
+    """A ``size``² render at ``depth`` (2 spp) through the kernels against
+    the same render through the plain versions (``plain_scene`` with
+    ``traversal="cluster_torch"``). Both routes compute the same t bit for
+    bit (--fmad=false), so only a tie resolved to another triangle can
+    part two paths. Returns the kernel launches of the render through the
+    kernels (the counts set to 0 just before it)."""
     from pathtracing_tpu_torch.models import progressive
+    from pathtracing_tpu_torch.ops import cluster_trace as ct
+    from pathtracing_tpu_torch.ops import pgather
     from pathtracing_tpu_torch.ops.camera import build_camera
     from pathtracing_tpu_torch.utils.config import RenderConfig
 
     cam = build_camera(cam_cfg, 1.0, device=DEVICE)
     imgs = []
+    launches = None
     for trav, sc in (("cluster_cuda", scene), ("cluster_torch", plain_scene)):
-        cfg = RenderConfig(width=64, height=64, samples_per_pixel=2,
-                           max_depth=DEPTH, seed=0, traversal=trav,
+        cfg = RenderConfig(width=size, height=size, samples_per_pixel=2,
+                           max_depth=depth, seed=0, traversal=trav,
                            background=background)
+        ct.reset_launches()
+        pgather.reset_launches()
         imgs.append(progressive.render_once(sc, cam, cfg))
+        if launches is None:
+            launches = launch_counts()
     diff = (imgs[0] - imgs[1]).abs().amax(-1)
     frac = float((diff > 1e-4).float().mean())
-    print(f"small render {label} kernels vs plain: max |diff| "
-          f"{float(diff.max()):.3e}, pixels over 1e-4: {frac:.4%}",
-          flush=True)
+    print(f"small render {label} {size}x{size} depth{depth} kernels vs "
+          f"plain: max |diff| {float(diff.max()):.3e}, pixels over 1e-4: "
+          f"{frac:.4%}", flush=True)
     if frac > 0.005:
         raise SmokeFailure(f"small render of {label} through the kernels "
                            "disagrees with the plain versions")
+    return launches
 
 
 def phase(name):
@@ -585,17 +731,23 @@ def phase(name):
 
 
 def kernel_entry(name, kernel, source, replaces, launches, waves, main,
-                 bound_of, library_ms=None):
+                 bound_of, library_ms=None, **extra):
     """One entry of the ``kernels`` line. ``waves``: {wave: result of a
     check}; ``main``: the wave whose numbers stand at the top level;
-    ``bound_of(result)`` -> (bound_ms, bound_by, ops, bytes)."""
+    ``bound_of(result)`` -> (bound_ms, bound_by, ops, bytes); ``extra``
+    keys join the entry. Each wave also gives the evaluations it needs and
+    the plain version's own slab tests and evaluations (on its held
+    rays)."""
     per_wave = {}
     for w, r in waves.items():
         wb, wby, _, _ = bound_of(r)
         per_wave[w] = {"ms": r["ms"], "plain_ms": r["plain_ms"],
                        "bound_ms": wb, "bound_by": wby,
                        "mismatches": r["mismatches"], "rays": r["rays"],
-                       **r["stats"]}
+                       **{k: r[k] for k in ("tie_mismatches", "plain_rays")
+                          if k in r},
+                       "needed_evals": r["needed_evals"],
+                       **{"plain_" + k: v for k, v in r["stats"].items()}}
     b_ms, b_by, ops, nbytes = bound_of(waves[main])
     return {
         "name": name, "route": "cuda", "source": source, "kernel": kernel,
@@ -604,9 +756,160 @@ def kernel_entry(name, kernel, source, replaces, launches, waves, main,
         "ms": waves[main]["ms"], "plain_ms": waves[main]["plain_ms"],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
         "wave": main, "ops": ops, "bytes": nbytes,
-        "slab_tests": waves[main]["stats"]["slab_tests"],
-        "vs_plain": "agree", "waves": per_wave,
+        "needed_evals": waves[main]["needed_evals"],
+        "vs_plain": "agree", "waves": per_wave, **extra,
     }
+
+
+def to_device(table):
+    """A numpy NamedTuple of tables (ClusterSet, PageSet) on the card."""
+    import torch
+
+    return type(table)(*(None if a is None else torch.as_tensor(a,
+                                                                device=DEVICE)
+                         for a in table))
+
+
+def big_scene_checks(camera, config, failures):
+    """Phase 3's big-scene part (see the module docstring). Returns {"scene":
+    the paged cornell_mesh(8), "flat": its unpaged ClusterSet on the card,
+    "results": {kernel: {wave: check}}, and the table sizes}."""
+    import torch
+
+    from pathtracing_tpu_torch.models import scenes
+    from pathtracing_tpu_torch.ops import cluster_trace as ct
+    from pathtracing_tpu_torch.ops import clusters as cluster_ops
+
+    t = phase("kernels vs plain: big scenes")
+    scene, _ = scenes.cornell_mesh(BIG_SUBDIVISIONS, device=DEVICE)
+    cl, pages = scene.clusters, scene.pages
+    n_pages, page_size, n_real = ct.page_shape(cl, pages)
+    n_real = int(n_real.sum())
+    page_nodes = int(pages.node_box.shape[2])
+    print(f"cornell_mesh({BIG_SUBDIVISIONS}): {scene.tri_v0.shape[0]} "
+          f"triangles, {n_real} clusters in {n_pages} pages of {page_size} "
+          f"({cl.woop.shape[0]} with padding), page trees of {page_nodes} "
+          f"nodes; built in {time.perf_counter() - t:.2f} s", flush=True)
+    if pages is None or n_pages != 8:
+        raise SmokeFailure(f"cornell_mesh({BIG_SUBDIVISIONS}) is not paged "
+                           "in 8 pages")
+    t = time.perf_counter()
+    host = [getattr(scene, f).cpu().numpy()
+            for f in ("tri_v0", "tri_e1", "tri_e2", "tri_mat")]
+    flat_np = cluster_ops.build_clusters(*host)[0]
+    forced_np = cluster_ops.build_pages(flat_np, FORCED_PAGE)
+    flat, (forced, forced_pages) = to_device(flat_np), (
+        to_device(forced_np[0]), to_device(forced_np[1]))
+    n_flat = int(flat.woop.shape[0])
+    n_nodes = int(flat.node_box.shape[1])
+    print(f"unpaged set of the same triangles: {n_flat} clusters, a tree of "
+          f"{n_nodes} nodes; paged by {FORCED_PAGE}: "
+          f"{forced_pages.node_box.shape[0]} pages "
+          f"({time.perf_counter() - t:.2f} s)", flush=True)
+
+    waves = make_waves(scene, camera, config)
+    n_wave = waves["camera"][0].shape[0]
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    sub = torch.randperm(n_wave, generator=gen)[:BIG_SUBSET].sort().values
+    sub = sub.to(DEVICE)
+    boxes = (flat.aabb_min, flat.aabb_max)
+    refs, needed = {}, {}
+
+    def reference(tables, key):
+        def ref(o, d, cap):
+            if key not in refs:
+                refs[key] = ct.trace_torch(tables, o, d, cap)
+            return refs[key]
+        return ref
+
+    results = {k: {} for k in ("trace_paged_dnf", "trace_tree",
+                               "occluded_tree", "trace_tree_paged")}
+
+    def run_check(name, kernel, plain, tables, key, wname, **extra):
+        """Row ``name`` on wave ``wname``: bit for bit against its plain
+        version and under the tie contract against ``trace_torch`` over
+        ``tables`` on the rays ``sub``. The evaluations a wave needs are
+        counted once for each query on it: every closest-hit kernel finds
+        the same final t, so rows 6, 7 and 9 share one bound."""
+        any_hit = name == "occluded_tree"
+        count = (wname, any_hit)
+        kw = dict(chunk=BIG_SUBSET, sub=sub, reference=reference(tables, key),
+                  boxes=None if count in needed else boxes)
+        if any_hit:
+            res = check_occluded(kernel, plain, waves[wname], **kw)
+        else:
+            res = check_trace(kernel, plain, waves[wname], strict=True,
+                              normal_tol=0.0, shadow="shadow" in wname, **kw)
+        res["needed_evals"] = needed.setdefault(count, res.get(
+            "needed_evals"))
+        results[name][wname if not extra else f"{wname}:{key}"] = res
+        report(name, res, failures, wave=wname, **extra)
+
+    def paged(c, p):
+        return (lambda o, d, cap: ct.trace_paged_dnf(c, p, o, d, cap),
+                lambda o, d, cap, stats: ct.trace_paged_dnf_torch(
+                    c, p, o, d, cap, stats=stats))
+
+    for wname in ("camera", "bounce", "camera_shadow", "bounce_shadow"):
+        run_check("trace_paged_dnf", *paged(cl, pages), cl, "paged:" + wname,
+                  wname)
+    for wname in ("camera", "bounce"):
+        run_check("trace_tree", lambda o, d, cap: ct.trace_tree(flat, o, d,
+                                                                cap),
+                  lambda o, d, cap, stats: ct.trace_tree_torch(
+                      flat, o, d, cap, stats=stats),
+                  flat, "flat:" + wname, wname)
+        run_check("trace_tree_paged",
+                  lambda o, d, cap: ct.trace_tree_paged(cl, pages, o, d, cap),
+                  lambda o, d, cap, stats: ct.trace_tree_paged_torch(
+                      cl, pages, o, d, cap, stats=stats),
+                  cl, "paged:" + wname, wname)
+    for wname in ("camera_shadow", "bounce_shadow"):
+        run_check("occluded_tree",
+                  lambda o, d, cap: ct.occluded_tree(flat, o, d, cap),
+                  lambda o, d, cap, stats: ct.occluded_tree_torch(
+                      flat, o, d, cap, stats=stats),
+                  flat, "flat:" + wname, wname)
+    run_check("trace_paged_dnf", *paged(forced, forced_pages), forced,
+              f"forced{FORCED_PAGE}", "camera", page_clusters=FORCED_PAGE)
+    del waves, refs, forced, forced_pages
+    return {"scene": scene, "flat": flat, "results": results,
+            "n_real": n_real, "n_pages": n_pages, "page_nodes": page_nodes,
+            "n_flat": n_flat, "n_nodes": n_nodes}
+
+
+def big_entries(big, big_launches, tree_launches):
+    """The ``kernels`` entries of rows 6-9 of the port table."""
+    src = "pathtracing_tpu_torch/csrc/"
+    res = big["results"]
+    n_real, n_flat = big["n_real"], big["n_flat"]
+    paged_nodes = big["n_pages"] * big["page_nodes"]
+    rows = (
+        ("trace_paged_dnf", "cluster_trace_paged.cu", 2516,
+         big_launches["trace_paged_dnf"], "camera", 52, None,
+         f"cornell_mesh({BIG_SUBDIVISIONS}) render, closest hit and shadow"),
+        ("trace_tree", "cluster_trace_tree.cu", 2002,
+         tree_launches["trace_tree"], "camera", 52,
+         n_flat * (WOOP_BYTES + MAT_BYTES) + big["n_nodes"] * NODE_BYTES,
+         f"cornell_mesh({BIG_SUBDIVISIONS}) unpaged, tree-route render"),
+        ("occluded_tree", "cluster_trace_tree.cu", 1915,
+         tree_launches["occluded_tree"], "camera_shadow", 29,
+         n_flat * WOOP_BYTES + big["n_nodes"] * NODE_BYTES,
+         f"cornell_mesh({BIG_SUBDIVISIONS}) unpaged, tree-route render"),
+        ("trace_tree_paged", "cluster_trace_tree.cu", 2401, 0, "camera", 52,
+         n_real * (WOOP_BYTES + MAT_BYTES) + paged_nodes * NODE_BYTES,
+         "none: no caller in the JAX package's models (direct calls only)"),
+    )
+    entries = []
+    for name, source, line, launches, main, ray_bytes, table, path in rows:
+        entries.append(kernel_entry(
+            name, name + "_kernel", src + source, f"{TPU_SOURCE}:{line}",
+            launches, res[name], main,
+            lambda r, rb=ray_bytes, tb=table: bound_ms(
+                r["needed_evals"], r["rays"], n_real, rb, table_bytes=tb),
+            path=path, plain_rays=res[name][main]["plain_rays"],
+            vs_trace_torch="tie contract held"))
+    return entries
 
 
 def run() -> dict:
@@ -621,6 +924,7 @@ def run() -> dict:
     print(f"card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}; {kind}; devices {count}")
 
+    from pathtracing_tpu_torch.models import scene as scene_mod
     from pathtracing_tpu_torch.models import scenes
     from pathtracing_tpu_torch.ops import cuda_build
     from pathtracing_tpu_torch.ops.camera import build_camera
@@ -653,12 +957,13 @@ def run() -> dict:
     waves = make_waves(scene, camera, config)
     results = {"trace": {}, "occluded": {}}
     tk, tp, ok, op = flat_fns(scene.clusters)
+    boxes = (scene.clusters.aabb_min, scene.clusters.aabb_max)
     for wname in ("camera", "bounce"):
-        res = check_trace(tk, tp, waves[wname])
+        res = check_trace(tk, tp, waves[wname], boxes=boxes)
         results["trace"][wname] = res
         report("trace_dnf", res, failures, wave=wname)
     for wname in ("camera_shadow", "bounce_shadow"):
-        res = check_occluded(ok, op, waves[wname])
+        res = check_occluded(ok, op, waves[wname], boxes=boxes)
         results["occluded"][wname] = res
         report("occluded_dnf", res, failures, wave=wname)
     del waves
@@ -695,16 +1000,18 @@ def run() -> dict:
     )
     for vname, sc, extra in variants:
         tk, tp, ok, op = inst_fns(sc.clusters, sc.instances)
+        boxes = (sc.instances.aabb_min, sc.instances.aabb_max)
         for wname in ("camera", "bounce"):
             res = check_trace(tk, tp, waves[wname] + extra,
-                              chunk=INST_PLAIN_CHUNK, strict=True)
+                              chunk=INST_PLAIN_CHUNK, strict=True,
+                              boxes=boxes)
             res["motion"] = vname != "static"
             inst_results["trace"][f"{vname}:{wname}"] = res
             report("trace_dnf_inst", res, failures, variant=vname,
                    wave=wname)
         for wname in ("camera_shadow", "bounce_shadow"):
             res = check_occluded(ok, op, waves[wname] + extra,
-                                 chunk=INST_PLAIN_CHUNK)
+                                 chunk=INST_PLAIN_CHUNK, boxes=boxes)
             res["motion"] = vname != "static"
             inst_results["occluded"][f"{vname}:{wname}"] = res
             report("occluded_dnf_inst", res, failures, variant=vname,
@@ -733,6 +1040,8 @@ def run() -> dict:
     lights_camera = build_camera(lights_cam_cfg, WIDTH / HEIGHT,
                                  device=DEVICE)
     gather_res = gather_checks(lights_scene, config, failures)
+
+    big = big_scene_checks(camera, config, failures)
     if failures:
         raise SmokeFailure("kernel disagrees with its plain version: "
                            + "; ".join(failures))
@@ -762,6 +1071,31 @@ def run() -> dict:
         flat_names + ("gather_rows_kernel",))
     if lights_launches["gather_rows"] <= 0:
         raise SmokeFailure("the many-light render launched no gather kernel")
+    big_label = f"cornell_mesh({BIG_SUBDIVISIONS})"
+    _, big_launches = timed_render(big_label, big["scene"], camera, config,
+                                   card, ("trace_paged_dnf_kernel",))
+    if big_launches["trace_paged_dnf"] <= 0:
+        raise SmokeFailure(f"the {big_label} render launched no paged kernel")
+    for name in ("trace", "occluded"):
+        if big_launches[name] != 0:
+            raise SmokeFailure(f"the {big_label} render launched the flat "
+                               f"{name} kernel")
+    # An unpaged scene past the flat budget routes to the tree walks.
+    tree_label = f"{big_label} unpaged (tree walks)"
+    tree_scene = big["scene"]._replace(clusters=big["flat"], pages=None)
+    if scene_mod.cluster_route(tree_scene) != "tree":
+        raise SmokeFailure("the unpaged big scene does not route to the tree")
+    _, tree_launches = timed_render(
+        tree_label, tree_scene, camera, config, card,
+        ("trace_tree_kernel", "occluded_tree_kernel"))
+    for name in ("trace_tree", "occluded_tree"):
+        if tree_launches[name] <= 0:
+            raise SmokeFailure(f"the tree-route render launched no {name} "
+                               "kernel")
+    for name in ("trace", "occluded", "trace_paged_dnf"):
+        if tree_launches[name] != 0:
+            raise SmokeFailure(f"the tree-route render launched the {name} "
+                               "kernel")
 
     phase("check")
     small_scene, _ = scenes.cornell_mesh(3, device=DEVICE)
@@ -777,6 +1111,15 @@ def run() -> dict:
         lights=lights_scene.lights._replace(packed=None))
     small_render_check("many_lights_demo", lights_scene, unpacked,
                        lights_cam_cfg, "black")
+    paged_small = scenes.cornell_mesh_builder(3).build(DEVICE,
+                                                       page_clusters=16)
+    small_render_check("cornell_mesh(3) paged by 16", paged_small,
+                       paged_small, cam_cfg, "black")
+    small_tree = small_render_check(tree_label, tree_scene, tree_scene,
+                                    cam_cfg, "black", size=32, depth=4)
+    if min(small_tree["trace_tree"], small_tree["occluded_tree"]) <= 0:
+        raise SmokeFailure("the small tree-route render left the tree "
+                           "kernels")
 
     src = "pathtracing_tpu_torch/csrc/"
     main_inst = {"trace": "static:camera", "occluded": "static:camera_shadow"}
@@ -785,12 +1128,14 @@ def run() -> dict:
             "trace_dnf", "trace_dnf_kernel", src + "cluster_trace.cu",
             TPU_SOURCE + ":1153", launches["trace"], results["trace"],
             "camera",
-            lambda r: bound_ms(r["stats"], r["rays"], n_clusters, 52)),
+            lambda r: bound_ms(r["needed_evals"], r["rays"], n_clusters,
+                               52)),
         kernel_entry(
             "occluded_dnf", "occluded_dnf_kernel", src + "cluster_trace.cu",
             TPU_SOURCE + ":1266", launches["occluded"], results["occluded"],
             "camera_shadow",
-            lambda r: bound_ms(r["stats"], r["rays"], n_clusters, 29)),
+            lambda r: bound_ms(r["needed_evals"], r["rays"], n_clusters,
+                               29)),
     ]
     for key, name, line, ray_bytes in (
         ("trace", "trace_dnf_inst", 1836, 52),
@@ -803,7 +1148,7 @@ def run() -> dict:
             f"{TPU_SOURCE}:{line}", inst_launches[key + "_inst"],
             inst_results[key], main_inst[key],
             lambda r, rb=ray_bytes: bound_ms(
-                r["stats"], r["rays"], n_proto, rb, n_exp=n_exp,
+                r["needed_evals"], r["rays"], n_proto, rb, n_exp=n_exp,
                 motion=r["motion"])))
     kernels.append({
         "name": "gather_rows", "route": "cuda", "source": src + "pgather.cu",
@@ -817,6 +1162,7 @@ def run() -> dict:
         "library": "torch.index_select", "shape": gather_res["shape"],
         "bytes": gather_res["bytes"], "vs_plain": "agree",
     })
+    kernels += big_entries(big, big_launches, tree_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": kind,

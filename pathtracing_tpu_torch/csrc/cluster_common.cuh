@@ -1,10 +1,13 @@
-// Shared device helpers of the cluster-sweep traversal kernels
-// (cluster_trace.cu: flat scenes; cluster_trace_inst.cu: instanced scenes):
-// the ray record, the safe reciprocal, the shared-memory box staging, the
-// slab test and the Woop triangle test. Every multiply and add is written
-// in the order of the plain torch versions (ops/cluster_trace.py: _slab,
-// _pair_eval) and the sources are built with --fmad=false, so a kernel's t
-// equals its plain version's bit for bit.
+// Shared device helpers of the cluster traversal kernels
+// (cluster_trace.cu: flat scenes; cluster_trace_inst.cu: instanced scenes;
+// cluster_trace_paged.cu: paged scenes; cluster_trace_tree.cu: the
+// cluster-tree walks): the ray record, the safe reciprocal, the
+// shared-memory box staging, the slab test, the Woop triangle test, the
+// closest hit and any hit within one cluster, and the block-wide
+// index-order box sweep. Every multiply and add is written in the order of
+// the plain torch versions (ops/cluster_trace.py: _slab, _pair_eval) and
+// the sources are built with --fmad=false, so a kernel's t equals its
+// plain version's bit for bit.
 
 #pragma once
 
@@ -58,18 +61,25 @@ __device__ __forceinline__ void stage_boxes(float (*box)[kBoxChunk],
   }
 }
 
-__device__ __forceinline__ bool slab(const float (*box)[kBoxChunk], int k,
-                                     const Ray& r, float best) {
+// Slab test of one box stored as six floats `stride` apart (xyz min, xyz
+// max): shared-memory chunks and the trees' (6, N) node tables alike.
+__device__ __forceinline__ bool slab_strided(const float* b, int stride,
+                                             const Ray& r, float best) {
   float tn = -kBig;
   float tf = kBig;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float t0 = (box[a][k] - r.o[a]) * r.inv[a];
-    const float t1 = (box[3 + a][k] - r.o[a]) * r.inv[a];
+    const float t0 = (b[a * stride] - r.o[a]) * r.inv[a];
+    const float t1 = (b[(3 + a) * stride] - r.o[a]) * r.inv[a];
     tn = fmaxf(tn, fminf(t0, t1));
     tf = fminf(tf, fmaxf(t0, t1));
   }
   return (tn <= tf) && (tf > kTMin) && (tn < best);
+}
+
+__device__ __forceinline__ bool slab(const float (*box)[kBoxChunk], int k,
+                                     const Ray& r, float best) {
+  return slab_strided(&box[0][k], kBoxChunk, r, best);
 }
 
 // Woop evaluation of triangle `j` of one cluster (w points at its
@@ -102,6 +112,94 @@ __device__ __forceinline__ float woop_hit(const float* __restrict__ w,
   const bool ok = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
                   (t > kTMin) && (t < cap);
   return ok ? t : kBig;
+}
+
+// Closest hit of a ray among the 128 triangles of one cluster (w points at
+// its (4, 384) tensor), capped at `cap`: the smallest t (kBig when none)
+// and in `lane_min` the first lane that reaches it, the plain version's
+// smallest lane on a tie.
+__device__ __forceinline__ float closest_in_cluster(
+    const float* __restrict__ w, const Ray& r, float cap, int& lane_min) {
+  float t_min = kBig;
+  lane_min = kClusterSize;
+  for (int j = 0; j < kClusterSize; ++j) {
+    const float t = woop_hit(w, j, r, cap);
+    if (t < t_min) {
+      t_min = t;
+      lane_min = j;
+    }
+  }
+  return t_min;
+}
+
+// Whether some triangle of one cluster lies strictly inside (T_MIN, cap).
+__device__ __forceinline__ bool any_in_cluster(const float* __restrict__ w,
+                                               const Ray& r, float cap) {
+  for (int j = 0; j < kClusterSize; ++j) {
+    if (woop_hit(w, j, r, cap) < cap) return true;
+  }
+  return false;
+}
+
+// The block sweeps clusters [c_begin, c_end) in index order: boxes staged
+// in shared memory kBoxChunk at a time, each lane slab-testing against its
+// own best_t, the warp skipping a cluster that no lane pierces, and a
+// lane that pierces one evaluating its 128 triangles capped at its best_t
+// when the cluster starts (strict < across clusters). Every thread of the
+// block calls it (it synchronises); `live` says whether this lane takes
+// part.
+__device__ __forceinline__ void sweep_closest(
+    float (*box)[kBoxChunk], const float* __restrict__ aabb_min,
+    const float* __restrict__ aabb_max, const float* __restrict__ woop,
+    int c_begin, int c_end, bool live, const Ray& r, float& best,
+    int& best_slot) {
+  for (int c0 = c_begin; c0 < c_end; c0 += kBoxChunk) {
+    const int n = min(kBoxChunk, c_end - c0);
+    __syncthreads();
+    stage_boxes(box, aabb_min, aabb_max, c0, n);
+    __syncthreads();
+    if (!__any_sync(kFull, live)) continue;
+    for (int k = 0; k < n; ++k) {
+      const bool h = live && slab(box, k, r, best);
+      if (!__any_sync(kFull, h)) continue;
+      if (h) {
+        const int c = c0 + k;
+        int lane_min;
+        const float t_min = closest_in_cluster(
+            woop + static_cast<size_t>(c) * 4 * kWoopCols, r, best,
+            lane_min);
+        if (t_min < best) {
+          best = t_min;
+          best_slot = c * kClusterSize + lane_min;
+        }
+      }
+    }
+  }
+}
+
+// Write ray i's closest-hit result, its normal and material read from the
+// cluster tables (normal 0 and mat 0 on a miss).
+__device__ __forceinline__ void store_closest(
+    int i, float best, int best_slot, const float* __restrict__ normal,
+    const int* __restrict__ mat, float* __restrict__ t_out,
+    int* __restrict__ slot_out, float* __restrict__ normal_out,
+    int* __restrict__ mat_out) {
+  t_out[i] = best;
+  slot_out[i] = best_slot;
+  if (best_slot >= 0) {
+    const int c = best_slot / kClusterSize;
+    const int lane = best_slot % kClusterSize;
+    const float* nc = normal + static_cast<size_t>(c) * 3 * kClusterSize;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      normal_out[3 * i + a] = nc[a * kClusterSize + lane];
+    }
+    mat_out[i] = mat[static_cast<size_t>(c) * kClusterSize + lane];
+  } else {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) normal_out[3 * i + a] = 0.0f;
+    mat_out[i] = 0;
+  }
 }
 
 }  // namespace ptpu

@@ -62,54 +62,13 @@ trace_dnf_kernel(const float* __restrict__ origin,
   const bool live = in_range && best > 0.0f;
   int best_slot = -1;
 
-  const bool block_live = __syncthreads_or(live);
-  if (block_live) {
-    for (int c0 = 0; c0 < n_clusters; c0 += kBoxChunk) {
-      const int n = min(kBoxChunk, n_clusters - c0);
-      __syncthreads();
-      stage_boxes(box, aabb_min, aabb_max, c0, n);
-      __syncthreads();
-      if (!__any_sync(kFull, live)) continue;
-      for (int k = 0; k < n; ++k) {
-        const bool h = live && slab(box, k, r, best);
-        if (!__any_sync(kFull, h)) continue;
-        if (h) {
-          const int c = c0 + k;
-          const float* w = woop + static_cast<size_t>(c) * 4 * kWoopCols;
-          // Cap at the cluster-start best_t; the first strict minimum
-          // over lanes is the smallest lane among tied t.
-          const float cap = best;
-          float t_min = kBig;
-          int lane_min = kClusterSize;
-          for (int j = 0; j < kClusterSize; ++j) {
-            const float t = woop_hit(w, j, r, cap);
-            if (t < t_min) {
-              t_min = t;
-              lane_min = j;
-            }
-          }
-          if (t_min < best) {
-            best = t_min;
-            best_slot = c * kClusterSize + lane_min;
-          }
-        }
-      }
-    }
+  if (__syncthreads_or(live)) {
+    sweep_closest(box, aabb_min, aabb_max, woop, 0, n_clusters, live, r,
+                  best, best_slot);
   }
-  if (!in_range) return;
-  t_out[i] = best;
-  slot_out[i] = best_slot;
-  if (best_slot >= 0) {
-    const int c = best_slot / kClusterSize;
-    const int lane = best_slot % kClusterSize;
-    const float* nc = normal + static_cast<size_t>(c) * 3 * kClusterSize;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) normal_out[3 * i + a] = nc[a * kClusterSize + lane];
-    mat_out[i] = mat[static_cast<size_t>(c) * kClusterSize + lane];
-  } else {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) normal_out[3 * i + a] = 0.0f;
-    mat_out[i] = 0;
+  if (in_range) {
+    store_closest(i, best, best_slot, normal, mat, t_out, slot_out,
+                  normal_out, mat_out);
   }
 }
 
@@ -143,16 +102,11 @@ occluded_dnf_kernel(const float* __restrict__ origin,
         if (!__any_sync(kFull, pending)) break;  // whole warp finished
         const bool h = pending && slab(box, k, r, cap);
         if (!__any_sync(kFull, h)) continue;
-        if (h) {
-          const float* w =
-              woop + static_cast<size_t>(c0 + k) * 4 * kWoopCols;
-          for (int j = 0; j < kClusterSize; ++j) {
-            if (woop_hit(w, j, r, cap) < cap) {
-              occ = true;
-              pending = false;
-              break;
-            }
-          }
+        if (h && any_in_cluster(
+                     woop + static_cast<size_t>(c0 + k) * 4 * kWoopCols, r,
+                     cap)) {
+          occ = true;
+          pending = false;
         }
       }
     }

@@ -173,16 +173,8 @@ trace_dnf_inst_kernel(const float* __restrict__ origin,
           const Ray q = to_object(xf, r);
           const int p = __ldg(cmap + e);
           const float* w = woop + static_cast<size_t>(p) * 4 * kWoopCols;
-          const float cap = best;
-          float t_min = kBig;
-          int lane_min = kClusterSize;
-          for (int j = 0; j < kClusterSize; ++j) {
-            const float t = woop_hit(w, j, q, cap);
-            if (t < t_min) {
-              t_min = t;
-              lane_min = j;
-            }
-          }
+          int lane_min;
+          const float t_min = closest_in_cluster(w, q, best, lane_min);
           if (t_min < best) {
             best = t_min;
             best_slot = p * kClusterSize + lane_min;
@@ -277,12 +269,9 @@ occluded_dnf_inst_kernel(const float* __restrict__ origin,
           const Ray q = to_object(xf, r);
           const float* w =
               woop + static_cast<size_t>(__ldg(cmap + e)) * 4 * kWoopCols;
-          for (int j = 0; j < kClusterSize; ++j) {
-            if (woop_hit(w, j, q, cap) < cap) {
-              occ = true;
-              pending = false;
-              break;
-            }
+          if (any_in_cluster(w, q, cap)) {
+            occ = true;
+            pending = false;
           }
         }
       }

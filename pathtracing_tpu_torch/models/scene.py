@@ -13,9 +13,12 @@ Layout invariants (as in the JAX package):
 ``intersect_batch``/``occluded_batch`` run the sphere pre-pass, then route
 the triangles to ``ops.cluster_trace``: the CUDA kernels for
 ``traversal="cluster_cuda"`` and their plain torch versions for
-``"cluster_torch"``; a scene with ``instances`` goes to the instanced pair
-under either name. ``scene_from_numpy`` takes the JAX package's Scene
-fields as numpy arrays, so one scene can feed both packages.
+``"cluster_torch"``. Under either name, as in the JAX package: a scene
+with ``instances`` goes to the instanced pair, a paged scene (``pages``)
+to the paged sweep for both queries, a flat scene of at most
+``DNF_MAX_CLUSTERS`` clusters to the flat pair, and a larger unpaged one
+to the cluster-tree walk. ``scene_from_numpy`` takes the JAX package's
+Scene fields as numpy arrays, so one scene can feed both packages.
 """
 
 from __future__ import annotations
@@ -59,6 +62,9 @@ class Scene(NamedTuple):
     # entries). When set, every cluster query goes through the instanced
     # kernels. None for ordinary scenes.
     instances: cluster_ops.InstanceSet = None
+    # HBM pages (ops.clusters.PageSet) of a scene past the flat kernels'
+    # budget; ``clusters`` is then in page order, padded to whole pages.
+    pages: cluster_ops.PageSet = None
 
     @property
     def material_table(self):
@@ -81,7 +87,6 @@ class Hit(NamedTuple):
 # Scene features of the JAX package that the port does not carry yet,
 # with the ROADMAP queue-A item that ports each.
 _UNPORTED_FIELDS = {
-    "pages": "item 15 (big scenes)",
     "env": "item 11 (envmap)",
     "attr_uv": "item 12 (surface attributes)",
     "attr_shn": "item 12 (surface attributes)",
@@ -113,8 +118,9 @@ def _fields(x):
 def scene_from_numpy(arrays, device) -> Scene:
     """The port's Scene from the JAX package's Scene fields as numpy
     arrays (a dict, or the Scene NamedTuple mapped through ``np.asarray``;
-    ``clusters`` and ``lights`` may be dicts or NamedTuples). Fields the
-    port does not carry must be None; the JAX BVH is ignored."""
+    ``clusters``, ``lights``, ``instances`` and ``pages`` may be dicts or
+    NamedTuples). Fields the port does not carry must be None; the JAX BVH
+    and the TPU lookahead kernel's ``cand_box`` blocks are dropped."""
     arrays = _fields(arrays)
     for name, item in _UNPORTED_FIELDS.items():
         if arrays.get(name) is not None:
@@ -155,19 +161,32 @@ def scene_from_numpy(arrays, device) -> Scene:
             fw0=opt(it, "fw0", torch.float32),
             fw1=opt(it, "fw1", torch.float32),
         )
+    pages = None
+    if arrays.get("pages") is not None:
+        pg = _fields(arrays["pages"])
+        node_meta = dev(pg["node_meta"], torch.int32)
+        pages = cluster_ops.PageSet(
+            node_box=dev(pg["node_box"], torch.float32),
+            node_meta=node_meta,
+            oct_links=dev(pg["oct_links"], torch.int32),
+            n_real=(node_meta[:, 1] >= 0).sum(dim=1, dtype=torch.int32),
+        )
     light_cols = {n: dev(li[n], torch.float32)
                   for n in lights.LightTable._fields
                   if n not in ("kind", "packed")}
     return Scene(
         mat_metallic=opt(arrays, "mat_metallic", torch.float32),
         mat_clearcoat=opt(arrays, "mat_clearcoat", torch.float32),
-        instances=instances,
+        instances=instances, pages=pages,
         clusters=cluster_ops.ClusterSet(
             aabb_min=dev(cl["aabb_min"], torch.float32),
             aabb_max=dev(cl["aabb_max"], torch.float32),
             woop=dev(cl["woop"], torch.float32),
             normal=dev(cl["normal"], torch.float32),
             mat=dev(cl["mat"], torch.int32),
+            node_box=opt(cl, "node_box", torch.float32),
+            node_meta=opt(cl, "node_meta", torch.int32),
+            oct_links=opt(cl, "oct_links", torch.int32),
         ),
         lights=lights.LightTable(
             kind=opt(li, "kind", torch.int32),
@@ -341,9 +360,13 @@ class SceneBuilder:
         ))
 
     # -- finalize ----------------------------------------------------------
-    def build(self, device=None) -> Scene:
+    def build(self, device=None, page_clusters: int = 0) -> Scene:
         """Build the scene's tables on the host and upload them to
-        ``device`` (the card unless the caller asks for another device)."""
+        ``device`` (the card unless the caller asks for another device).
+        The scene is paged (``ops.clusters.build_pages``) under the JAX
+        package's condition: past ``DNF_MAX_CLUSTERS`` clusters, past
+        ``CAND_MAX_NODES`` tree nodes, or whenever ``page_clusters`` (a
+        forced page size, for tests) is given."""
         device = resolve_device(device)
         if not self._mat:
             self.lambertian((0.5, 0.5, 0.5))
@@ -377,18 +400,18 @@ class SceneBuilder:
         # the light table, and so the light picks, follow).
         _, perm = bvh_ops.build_bvh(v0, e1, e2)
         cl, _, _ = cluster_ops.build_clusters(v0, e1, e2, tri_mat)
-        if self._protos and (cl.woop.shape[0]
-                             > cluster_trace.DNF_MAX_CLUSTERS):
+        over_budget = cl.woop.shape[0] > cluster_trace.DNF_MAX_CLUSTERS
+        if self._protos and (page_clusters or over_budget):
             raise ValueError(
                 "instanced scenes cannot page: base geometry must fit "
                 f"the flat DNF budget ({cluster_trace.DNF_MAX_CLUSTERS} "
                 "clusters)"
             )
-        if cl.woop.shape[0] > cluster_trace.DNF_MAX_CLUSTERS:
-            raise NotImplementedError(
-                f"{cl.woop.shape[0]} clusters exceed the flat kernels' "
-                f"budget ({cluster_trace.DNF_MAX_CLUSTERS}); paged scenes "
-                "are not ported yet (ROADMAP queue A item 15)"
+        pages = None
+        if page_clusters or over_budget or (
+                cl.node_meta.shape[1] > cluster_ops.CAND_MAX_NODES):
+            cl, pages, _ = cluster_ops.build_pages(
+                cl, page_clusters or cluster_ops.PAGE_CLUSTERS
             )
         v0, e1, e2, tri_mat = v0[perm], e1[perm], e2[perm], tri_mat[perm]
 
@@ -410,27 +433,28 @@ class SceneBuilder:
             cc = np.array(self._mat_cc, np.float32)
             if (cc[:, 0] > 0.0).any():
                 mat_clearcoat = dev(cc)
-        if instances is not None:
-            instances = cluster_ops.InstanceSet(*(
+
+        def dev_all(table):
+            return type(table)(*(
                 None if x is None else dev(
                     x, torch.float32 if x.dtype == np.float32
                     else torch.int32)
-                for x in instances))
+                for x in table))
+
+        if instances is not None:
+            instances = dev_all(instances)
 
         return Scene(
             mat_metallic=mat_metallic, mat_clearcoat=mat_clearcoat,
             instances=instances,
+            pages=None if pages is None else dev_all(pages),
             sph_center=dev(sph_center), sph_radius=dev(sph_radius),
             sph_mat=dev(sph_mat, torch.int32),
             tri_v0=dev(v0), tri_e1=dev(e1), tri_e2=dev(e2),
             tri_mat=dev(tri_mat, torch.int32),
             mat_type=dev(mat_type, torch.int32), mat_albedo=dev(mat_albedo),
             mat_param=dev(mat_param), mat_emit=dev(mat_emit),
-            clusters=cluster_ops.ClusterSet(
-                aabb_min=dev(cl.aabb_min), aabb_max=dev(cl.aabb_max),
-                woop=dev(cl.woop), normal=dev(cl.normal),
-                mat=dev(cl.mat, torch.int32),
-            ),
+            clusters=dev_all(cl),
             lights=lights.build_light_table(
                 v0, v0 + e1, v0 + e2, tri_mat, mat_type, mat_emit,
                 materials.TYPE_EMISSIVE, device,
@@ -444,8 +468,9 @@ class SceneBuilder:
         per prototype so cluster ranges stay contiguous) after the base
         clusters, then expand the placements — base geometry as one
         identity entry, every instance as a (first, count, M, imat, M1)
-        range — into the InstanceSet. Returns (combined ClusterSet,
-        InstanceSet), numpy."""
+        range — into the InstanceSet. The combined ClusterSet keeps the
+        base geometry's tree fields (instanced scenes never walk a tree).
+        Returns (combined ClusterSet, InstanceSet), numpy."""
         n_base = cl.aabb_min.shape[0]
         placements = [(0, n_base, np.concatenate(
             [np.eye(3), np.zeros((3, 1))], axis=1))]
@@ -470,9 +495,9 @@ class SceneBuilder:
             for m, im, m1 in zip(ts, imats, mts):
                 placements.append((offset, npc, m, im, m1))
             offset += npc
-        cl = cluster_ops.ClusterSet(*(
-            np.concatenate([getattr(p, f) for p in parts])
-            for f in cluster_ops.ClusterSet._fields))
+        cl = cl._replace(**{
+            f: np.concatenate([getattr(p, f) for p in parts])
+            for f in ("aabb_min", "aabb_max", "woop", "normal", "mat")})
         instances = cluster_ops.expand_instances(cl, placements)
         ce = instances.cmap.shape[0]
         if ce > cluster_trace.DNF_MAX_CLUSTERS:
@@ -497,10 +522,16 @@ def uses_mips(scene: Scene) -> bool:
 
 
 def uses_dnf(scene: Scene) -> bool:
-    """True when cluster queries route to the flat or instanced cluster
-    kernels (every scene ``SceneBuilder`` accepts)."""
+    """True when cluster queries route to a cluster sweep (flat, instanced
+    or paged): the megakernel then compacts its waves, as in the JAX
+    package. False only for an unpaged scene past ``DNF_MAX_CLUSTERS``,
+    which walks the cluster tree. (The JAX package also sorts that route's
+    rays into octant bins, ``binning.ray_bin``; the result does not depend
+    on the order, and the port's walk takes each ray's own octant, so the
+    port does not bin: ROADMAP queue A item 13.)"""
     return scene.clusters is not None and (
-        scene.instances is not None
+        scene.pages is not None
+        or scene.instances is not None
         or scene.clusters.woop.shape[0] <= cluster_trace.DNF_MAX_CLUSTERS
     )
 
@@ -514,35 +545,70 @@ def _sphere_pass(scene: Scene, origin, direction):
     )
 
 
+def _paged_occluded_torch(clusters, pages, origin, direction, t_max):
+    return cluster_trace.trace_paged_dnf_torch(
+        clusters, pages, origin, direction, t_max)[1] >= 0
+
+
+def _paged_occluded(clusters, pages, origin, direction, t_max):
+    # Paged occlusion reuses the closest-hit page sweep, as in the JAX
+    # package (a paged any-hit kernel would only save the epilogue).
+    return cluster_trace.trace_paged_dnf(
+        clusters, pages, origin, direction, t_max)[1] >= 0
+
+
 _ROUTES = {
-    # (query, instanced): (plain version, dispatching kernel wrapper)
-    ("trace", False): (cluster_trace.trace_torch, cluster_trace.trace),
-    ("occluded", False): (cluster_trace.occluded_torch,
-                          cluster_trace.occluded),
-    ("trace", True): (cluster_trace.trace_inst_torch,
-                      cluster_trace.trace_inst),
-    ("occluded", True): (cluster_trace.occluded_inst_torch,
-                         cluster_trace.occluded_inst),
+    # (query, route): (plain version, dispatching kernel wrapper)
+    ("trace", "flat"): (cluster_trace.trace_torch, cluster_trace.trace),
+    ("occluded", "flat"): (cluster_trace.occluded_torch,
+                           cluster_trace.occluded),
+    ("trace", "instanced"): (cluster_trace.trace_inst_torch,
+                             cluster_trace.trace_inst),
+    ("occluded", "instanced"): (cluster_trace.occluded_inst_torch,
+                                cluster_trace.occluded_inst),
+    ("trace", "paged"): (cluster_trace.trace_paged_dnf_torch,
+                         cluster_trace.trace_paged_dnf),
+    ("occluded", "paged"): (_paged_occluded_torch, _paged_occluded),
+    ("trace", "tree"): (cluster_trace.trace_tree_torch,
+                        cluster_trace.trace_tree),
+    ("occluded", "tree"): (cluster_trace.occluded_tree_torch,
+                           cluster_trace.occluded_tree),
 }
+
+
+def cluster_route(scene: Scene) -> str:
+    """Which traversal a scene's cluster queries take, as in the JAX
+    package: "instanced", "paged", "flat" (at most ``DNF_MAX_CLUSTERS``
+    clusters) or "tree" (an unpaged scene past that budget)."""
+    if scene.instances is not None:
+        return "instanced"
+    if scene.pages is not None:
+        return "paged"
+    if scene.clusters.woop.shape[0] <= cluster_trace.DNF_MAX_CLUSTERS:
+        return "flat"
+    return "tree"
 
 
 def _cluster_query(scene: Scene, query: str, traversal: str):
     """The cluster traversal of this scene under ``traversal``, as a
     function (origin, direction, cap, time) -> result. Instanced scenes
     take the instanced pair (``time`` is the per-ray shutter time of a
-    motion set); flat scenes ignore ``time``."""
-    instanced = scene.instances is not None
-    if instanced and traversal == "bvh":
+    motion set); the other routes ignore ``time``."""
+    route = cluster_route(scene)
+    if route == "instanced" and traversal == "bvh":
         raise ValueError(
             "instanced scenes need a cluster traversal mode (the BVH only "
             "indexes base triangles)"
         )
     if traversal not in ("cluster_torch", "cluster_cuda"):
         raise ValueError(f"unknown traversal mode: {traversal!r}")
-    fn = _ROUTES[query, instanced][traversal == "cluster_cuda"]
-    if instanced:
+    fn = _ROUTES[query, route][traversal == "cluster_cuda"]
+    if route == "instanced":
         return lambda o, d, cap, time: fn(scene.clusters, scene.instances,
                                           o, d, cap, time=time)
+    if route == "paged":
+        return lambda o, d, cap, time: fn(scene.clusters, scene.pages,
+                                          o, d, cap)
     return lambda o, d, cap, time: fn(scene.clusters, o, d, cap)
 
 

@@ -1,21 +1,31 @@
-"""Host-side binned-SAH BVH builder (NumPy) — the JAX package's
-``ops/bvh._build_bvh_numpy``, copied so the port stands alone.
+"""Host-side binned-SAH BVH builder — the JAX package's ``ops/bvh``
+builders, copied so the port stands alone.
 
 ``SceneBuilder.build`` uses it at leaf size 4 for the stored triangle
 order (the light table follows that order, so light picks match the JAX
 package's) and ``ops.clusters.build_clusters`` at leaf size 128 for the
 cluster packing. Nodes are in DFS preorder with skip links; no traversal
 is ported (the port traces through the cluster kernels).
+
+``build_bvh`` takes the C++ builder (``ops.bvh_native``, built at first
+use) unless ``USE_NATIVE`` is False; it raises if that library cannot be
+built. ``_build_bvh_numpy`` is the reference: the parity tests set
+``USE_NATIVE = False`` where they hold the port against the JAX package's
+NumPy build.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from pathtracing_tpu_torch.ops import bvh_native
+
 LEAF_SIZE = 4
 SAH_BINS = 16
 TRAVERSAL_COST = 1.0
 INTERSECT_COST = 1.5
+# Build with the C++ builder (False: the NumPy reference).
+USE_NATIVE = True
 
 
 def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
@@ -23,6 +33,8 @@ def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
     """Threaded BVH over triangles (v0, v0+e1, v0+e2). Returns
     ((node_min, node_max, node_meta), permutation) where ``permutation``
     reorders the input triangles so each leaf covers a contiguous range."""
+    if USE_NATIVE:
+        return bvh_native.build(v0, e1, e2, leaf_size, SAH_BINS)
     return _build_bvh_numpy(v0, e1, e2, leaf_size)
 
 

@@ -32,6 +32,26 @@ carries the per-instance override, and ``time`` is the per-ray shutter time
 of a motion-blurred set (mid-shutter when None; ignored by static sets).
 Plain versions ``trace_inst_torch`` / ``occluded_inst_torch`` (a port of
 ``trace_jax_inst``); kernels in ``csrc/cluster_trace_inst.cu``.
+
+Scenes past ``DNF_MAX_CLUSTERS`` (``ops.clusters`` trees and pages) go
+through
+
+  trace_paged_dnf(clusters, pages, origin, direction, t_init)
+  trace_tree(clusters, origin, direction, t_init)
+  occluded_tree(clusters, origin, direction, t_max)
+  trace_tree_paged(clusters, pages, origin, direction, t_init)
+
+with the same contract, ``slot`` in the page-ordered cluster numbering of
+a paged set. ``trace_paged_dnf`` sweeps the pages in order, each page's
+real clusters in index order (plain version ``trace_paged_dnf_torch``,
+equal to ``trace_torch`` over the padded set; kernel in
+``csrc/cluster_trace_paged.cu``); paged occlusion is its ``slot >= 0``.
+The other three walk the threaded cluster tree per ray, each ray along
+its own direction octant's links (plain versions ``trace_tree_torch``,
+``occluded_tree_torch``, ``trace_tree_paged_torch``, a vectorised walk in
+which all live rays step together; kernels in
+``csrc/cluster_trace_tree.cu``); their normal is the winner's Woop w-row
+normalised, as in the JAX tree kernels.
 """
 
 from __future__ import annotations
@@ -45,14 +65,15 @@ from pathtracing_tpu_torch.ops.clusters import CLUSTER_SIZE
 from pathtracing_tpu_torch.ops.intersect import T_MIN
 
 _BIG = 3.0e38
-# Cluster-count ceiling of the JAX package's flat DNF kernels; the port's
-# SceneBuilder refuses larger scenes until the paged/tree kernels exist.
+# Cluster-count ceiling of the JAX package's flat DNF kernels: a scene past
+# it is paged by SceneBuilder, or (unpaged) walks the cluster tree.
 DNF_MAX_CLUSTERS = 8192
 
 # Launch counts of the CUDA kernels (a run resets them to 0 before the
 # path it wants to account for and reads them after).
 LAUNCHES = {"trace": 0, "occluded": 0, "trace_inst": 0,
-            "occluded_inst": 0}
+            "occluded_inst": 0, "trace_paged_dnf": 0, "trace_tree": 0,
+            "occluded_tree": 0, "trace_tree_paged": 0}
 
 
 def reset_launches() -> None:
@@ -69,7 +90,9 @@ def _safe_inv(d3):
 
 
 def _slab(origin, inv_d, bmin, bmax, best_t):
-    """Rays × one AABB slab test (the JAX ``_slab6``). Returns (R,) bool."""
+    """Rays × one AABB slab test (the JAX ``_slab6``); ``bmin``/``bmax``
+    index by axis to a scalar, or to an (R,) column of per-ray boxes.
+    Returns (R,) bool."""
     tn = torch.full_like(best_t, -_BIG)
     tf = torch.full_like(best_t, _BIG)
     for ax in range(3):
@@ -84,14 +107,16 @@ def _slab(origin, inv_d, bmin, bmax, best_t):
 
 def _pair_eval(origin, direction, woop_c, best_t):
     """Rays × one cluster's 128 Woop triangles (the JAX ``_pair_eval``):
-    broadcast multiply-adds in a fixed order, no matmul. ``best_t`` is
-    (n, 1). Returns t (n, 128) with misses at _BIG."""
-    op = woop_c[3] + origin[:, 0:1] * woop_c[0]
-    op = op + origin[:, 1:2] * woop_c[1]
-    op = op + origin[:, 2:3] * woop_c[2]
-    dp = direction[:, 0:1] * woop_c[0]
-    dp = dp + direction[:, 1:2] * woop_c[1]
-    dp = dp + direction[:, 2:3] * woop_c[2]
+    broadcast multiply-adds in a fixed order, no matmul. ``woop_c`` is one
+    cluster's (4, 384) tensor, or (n, 4, 384) with each ray's own cluster;
+    ``best_t`` is (n, 1). Returns t (n, 128) with misses at _BIG."""
+    w = [woop_c[..., row, :] for row in range(4)]
+    op = w[3] + origin[:, 0:1] * w[0]
+    op = op + origin[:, 1:2] * w[1]
+    op = op + origin[:, 2:3] * w[2]
+    dp = direction[:, 0:1] * w[0]
+    dp = dp + direction[:, 1:2] * w[1]
+    dp = dp + direction[:, 2:3] * w[2]
     k = CLUSTER_SIZE
     op_u, op_v, op_w = op[:, :k], op[:, k:2 * k], op[:, 2 * k:]
     dp_u, dp_v, dp_w = dp[:, :k], dp[:, k:2 * k], dp[:, 2 * k:]
@@ -113,50 +138,96 @@ def lookup_hit(clusters, slot):
     return clusters.normal[c_idx, :, lane], clusters.mat[c_idx, lane]
 
 
-def trace_torch(clusters, origin, direction, t_init, stats=None):
-    """Plain closest-hit sweep: every cluster in index order, strict ``<``
-    across clusters and the smallest lane on a tie within one (the JAX
-    ``trace_jax`` tie rule). Only the rays whose slab test passes are
-    evaluated against a cluster — elementwise the same arithmetic, so the
-    result equals the fully masked sweep. ``stats`` (optional dict)
-    receives ``slab_tests`` and ``cluster_evals``: the (ray, cluster)
-    pairs this input needs."""
-    r = origin.shape[0]
-    n_clusters = clusters.woop.shape[0]
-    best_t = t_init.to(torch.float32).clone()
-    best_slot = torch.full((r,), -1, dtype=torch.int32, device=origin.device)
-    inv_d = _safe_inv(direction)
-    lane = torch.arange(CLUSTER_SIZE, dtype=torch.int32, device=origin.device)
-    n_slab = n_eval = 0
-    for c in range(n_clusters):
+def _closest_update(t_pair, c, bt, best_t, best_slot, idx):
+    """Fold one evaluation into the closest hit of rays ``idx``: ``t_pair``
+    (n, 128) from ``_pair_eval`` capped at their best t ``bt`` (n,), ``c``
+    the evaluated cluster id (scalar or (n,)). Strict ``<`` across
+    clusters and the smallest lane on a tie within one (the JAX
+    ``trace_jax`` tie rule)."""
+    lane = torch.arange(CLUSTER_SIZE, dtype=torch.int32, device=bt.device)
+    t_min = torch.min(t_pair, dim=1).values
+    slot = torch.min(
+        torch.where(t_pair <= t_min[:, None], lane, CLUSTER_SIZE), dim=1
+    ).values
+    upd = t_min < bt
+    best_t[idx] = torch.where(upd, t_min, bt)
+    best_slot[idx] = torch.where(upd, c * CLUSTER_SIZE + slot,
+                                 best_slot[idx]).to(torch.int32)
+
+
+class _Counts:
+    """Work counters of a plain traversal: slab tests and cluster
+    evaluations, into ``stats`` when given."""
+
+    def __init__(self, stats=None):
+        self.stats = stats
+        self.slab_tests = self.cluster_evals = 0
+
+    def add(self, tested, evaluated):
+        """``tested``: the number of rays slab-tested (a count or a
+        0-d tensor); ``evaluated``: the indices of the rays evaluated
+        against a cluster."""
+        if self.stats is not None:
+            self.slab_tests += int(tested)
+            self.cluster_evals += evaluated.numel()
+
+    def record(self):
+        if self.stats is not None:
+            self.stats["slab_tests"] = self.slab_tests
+            self.stats["cluster_evals"] = self.cluster_evals
+
+
+def _sweep(clusters, cluster_ids, origin, direction, inv_d, best_t,
+           best_slot, counts, want=None):
+    """Closest-hit sweep of ``cluster_ids`` in order (in place on
+    ``best_t``/``best_slot``); only live rays (and, given ``want``, only
+    those rays) whose slab test passes are evaluated against a cluster —
+    elementwise the same arithmetic, so the result equals the fully masked
+    sweep. ``counts`` (``_Counts``) accumulates."""
+    for c in cluster_ids:
         live = best_t > 0.0
+        if want is not None:
+            live = live & want
         hit = live & _slab(origin, inv_d, clusters.aabb_min[c],
                            clusters.aabb_max[c], best_t)
         idx = torch.nonzero(hit).squeeze(1)
-        if stats is not None:
-            n_slab += int(live.sum())
-            n_eval += idx.numel()
+        counts.add(live.sum() if counts.stats is not None else 0, idx)
         if idx.numel() == 0:
             continue
         bt = best_t[idx]
         t_pair = _pair_eval(origin[idx], direction[idx], clusters.woop[c],
                             bt[:, None])
-        t_min = torch.min(t_pair, dim=1).values
-        slot = torch.min(
-            torch.where(t_pair <= t_min[:, None], lane, CLUSTER_SIZE), dim=1
-        ).values
-        upd = t_min < bt
-        best_t[idx] = torch.where(upd, t_min, bt)
-        best_slot[idx] = torch.where(upd, c * CLUSTER_SIZE + slot,
-                                     best_slot[idx])
-    if stats is not None:
-        stats["slab_tests"] = n_slab
-        stats["cluster_evals"] = n_eval
+        _closest_update(t_pair, c, bt, best_t, best_slot, idx)
+
+
+def _table_hit(clusters, best_t, best_slot):
+    """The closest-hit result with normal and material from the tables."""
     normal, mat = lookup_hit(clusters, best_slot)
     miss = best_slot < 0
     normal = torch.where(miss[:, None], 0.0, normal)
     mat = torch.where(miss, 0, mat)
     return best_t, best_slot, normal, mat
+
+
+def _start(origin, t_init):
+    """(best_t, best_slot) before a closest-hit query."""
+    return (t_init.to(torch.float32).clone(),
+            torch.full((origin.shape[0],), -1, dtype=torch.int32,
+                       device=origin.device))
+
+
+def trace_torch(clusters, origin, direction, t_init, stats=None):
+    """Plain closest-hit sweep: every cluster in index order, strict ``<``
+    across clusters and the smallest lane on a tie within one (the JAX
+    ``trace_jax`` tie rule). ``stats`` (optional dict) receives
+    ``slab_tests`` and ``cluster_evals``: the (ray, cluster) pairs this
+    input needs."""
+    best_t, best_slot = _start(origin, t_init)
+    counts = _Counts(stats)
+    _sweep(clusters, range(clusters.woop.shape[0]), origin, direction,
+           _safe_inv(direction), best_t, best_slot, counts)
+    counts.record()
+    return _table_hit(clusters, best_t, best_slot)
 
 
 def occluded_torch(clusters, origin, direction, t_max, stats=None):
@@ -185,6 +256,165 @@ def occluded_torch(clusters, origin, direction, t_max, stats=None):
         stats["slab_tests"] = n_slab
         stats["cluster_evals"] = n_eval
     return occ
+
+
+# --- plain torch versions of the big-scene routes -----------------------
+
+
+def page_shape(clusters, pages):
+    """(pages G, clusters per page P, real clusters per page as an (G,)
+    int32 tensor) of a paged scene: page g's real clusters are [g*P,
+    g*P + n_real[g]), the leaves of its tree."""
+    n_pages = pages.node_box.shape[0]
+    return n_pages, clusters.woop.shape[0] // n_pages, pages.n_real
+
+
+def trace_paged_dnf_torch(clusters, pages, origin, direction, t_init,
+                          stats=None):
+    """Plain paged closest-hit sweep: pages in order, each page's real
+    clusters in index order. A ray whose slab test misses a page's bounds
+    (the root box of its tree) sits the page out: it would miss every box
+    in it, so the result equals ``trace_torch`` over the padded set bit for
+    bit, while padding clusters (inverted boxes, which a slab test passes
+    for every ray) are never evaluated. ``stats`` as in ``trace_torch``
+    (the page tests count as slab tests)."""
+    n_pages, page_size, n_real = page_shape(clusters, pages)
+    best_t, best_slot = _start(origin, t_init)
+    inv_d = _safe_inv(direction)
+    counts = _Counts(stats)
+    no_rays = torch.zeros(0, dtype=torch.int64, device=origin.device)
+    for g, n in enumerate(n_real.tolist()):
+        live = best_t > 0.0
+        root = pages.node_box[g, :, 0]
+        want = live & _slab(origin, inv_d, root[:3], root[3:], best_t)
+        counts.add(live.sum() if stats is not None else 0, no_rays)
+        if not bool(want.any()):
+            continue
+        c0 = g * page_size
+        _sweep(clusters, range(c0, c0 + n), origin, direction, inv_d,
+               best_t, best_slot, counts, want=want)
+    counts.record()
+    return _table_hit(clusters, best_t, best_slot)
+
+
+def _octant(direction):
+    """(R,) direction octant: x>0 → +4, y>0 → +2, z>0 → +1 (a zero
+    component counts as negative), the layout of ``oct_links``."""
+    return ((direction[:, 0] > 0).long() * 4 + (direction[:, 1] > 0).long()
+            * 2 + (direction[:, 2] > 0).long())
+
+
+def _walk_torch(tree, woop, origin, direction, inv_d, octant, best_t,
+                best_slot, cid_base, counts, occ=None):
+    """Per-ray walk of one threaded tree ``tree`` = (node_box (6, N),
+    node_meta (2, N), links (16, N)), all live rays stepping together:
+    gather each ray's node box, slab-test it against the ray's best t,
+    evaluate the rays that stand on a pierced leaf against its cluster
+    (leaf ids offset by ``cid_base``), and move each ray to
+    ``links[oct]`` (hit) or ``links[8 + oct]`` (miss) of its own octant
+    until it passes the last node. Closest hit: in place on ``best_t`` /
+    ``best_slot``. Any hit (``occ`` given): ``best_t`` is the fixed cap,
+    and a ray is retired at its first hit (``occ`` set in place)."""
+    node_box, node_meta, links = tree
+    n_nodes = node_box.shape[1]
+    live = best_t > 0.0
+    if occ is not None:
+        live = live & ~occ
+    node = torch.where(live, 0, n_nodes).long()
+    while True:
+        idx = torch.nonzero(node < n_nodes).squeeze(1)
+        if idx.numel() == 0:
+            break
+        nd = node[idx]
+        box = node_box[:, nd]
+        bt = best_t[idx]
+        hit = _slab(origin[idx], inv_d[idx], box[:3], box[3:], bt)
+        leaf = hit & (node_meta[1, nd] >= 0)
+        li = idx[leaf]
+        counts.add(idx.numel(), li)
+        oc = octant[idx]
+        nxt = torch.where(hit, links[oc, nd], links[8 + oc, nd]).long()
+        if li.numel():
+            c = node_meta[1, nd[leaf]].long() + cid_base
+            t_pair = _pair_eval(origin[li], direction[li], woop[c],
+                                bt[leaf][:, None])
+            if occ is None:
+                _closest_update(t_pair, c, bt[leaf], best_t, best_slot, li)
+            else:
+                found = torch.min(t_pair, dim=1).values < bt[leaf]
+                occ[li] = found
+                nxt[leaf] = torch.where(found, n_nodes, nxt[leaf])
+        node[idx] = nxt
+
+
+def _tree(clusters):
+    if clusters.node_box is None:
+        raise ValueError("this ClusterSet carries no cluster tree")
+    n = clusters.node_box.shape[1]
+    return (clusters.node_box, clusters.node_meta,
+            clusters.oct_links.reshape(16, n))
+
+
+def _woop_normal_hit(clusters, best_t, best_slot):
+    """The closest-hit result of the tree walks: normal = the winner's
+    Woop w-row normalised with rsqrt (as the JAX tree kernels compute it),
+    material from the table."""
+    safe = torch.clamp(best_slot, min=0).long()
+    c, lane = safe // CLUSTER_SIZE, safe % CLUSTER_SIZE
+    w = clusters.woop[c, 0:3, 2 * CLUSTER_SIZE + lane]        # (R, 3)
+    nx, ny, nz = w[:, 0], w[:, 1], w[:, 2]
+    inv_len = torch.rsqrt(torch.clamp(nx * nx + ny * ny + nz * nz,
+                                      min=1e-30))
+    normal = torch.stack([nx * inv_len, ny * inv_len, nz * inv_len], dim=1)
+    miss = best_slot < 0
+    normal = torch.where(miss[:, None], 0.0, normal)
+    mat = torch.where(miss, 0, clusters.mat[c, lane])
+    return best_t, best_slot, normal, mat
+
+
+def trace_tree_torch(clusters, origin, direction, t_init, stats=None):
+    """Plain per-ray cluster-tree walk, closest hit (see ``_walk_torch``):
+    the clusters each ray reaches, in the kernel's order. ``stats``:
+    ``slab_tests`` (node visits) and ``cluster_evals``."""
+    best_t, best_slot = _start(origin, t_init)
+    counts = _Counts(stats)
+    _walk_torch(_tree(clusters), clusters.woop, origin, direction,
+                _safe_inv(direction), _octant(direction), best_t, best_slot,
+                0, counts)
+    counts.record()
+    return _woop_normal_hit(clusters, best_t, best_slot)
+
+
+def occluded_tree_torch(clusters, origin, direction, t_max, stats=None):
+    """Plain per-ray cluster-tree walk, any hit: equal to
+    ``trace_torch(..., t_max)[1] >= 0``, each ray retired at its first
+    hit. ``stats`` as in ``trace_tree_torch``."""
+    cap = t_max.to(torch.float32)
+    occ = torch.zeros(origin.shape[0], dtype=torch.bool, device=origin.device)
+    counts = _Counts(stats)
+    _walk_torch(_tree(clusters), clusters.woop, origin, direction,
+                _safe_inv(direction), _octant(direction), cap, None, 0,
+                counts, occ=occ)
+    counts.record()
+    return occ
+
+
+def trace_tree_paged_torch(clusters, pages, origin, direction, t_init,
+                           stats=None):
+    """Plain per-ray walk of each page's tree in page order, closest hit,
+    the best t carried from page to page; page-local cluster ids become
+    global slots ``(page*P + cid)*128 + lane``. ``stats`` as in
+    ``trace_tree_torch``."""
+    n_pages, page_size, _ = page_shape(clusters, pages)
+    best_t, best_slot = _start(origin, t_init)
+    inv_d, octant = _safe_inv(direction), _octant(direction)
+    counts = _Counts(stats)
+    for g in range(n_pages):
+        tree = (pages.node_box[g], pages.node_meta[g], pages.oct_links[g])
+        _walk_torch(tree, clusters.woop, origin, direction, inv_d, octant,
+                    best_t, best_slot, g * page_size, counts)
+    counts.record()
+    return _woop_normal_hit(clusters, best_t, best_slot)
 
 
 # --- instanced plain torch versions --------------------------------------
@@ -402,6 +632,26 @@ _INST_SIGNATURES = {
 }
 
 
+_PAGED_SIGNATURES = {
+    # origin, direction, t_init, aabb_min, aabb_max, woop, normal, mat,
+    # page_tree_box, n_real, n_rays, n_pages, page_size, page_nodes, t_out,
+    # slot_out, normal_out, mat_out, stream
+    "ptpu_trace_paged_dnf": [_P] * 10 + [_I] * 4 + [_P] * 5,
+}
+_TREE_SIGNATURES = {
+    # origin, direction, t_init, node_box, node_meta, links, woop, mat,
+    # n_rays, n_nodes, t_out, slot_out, normal_out, mat_out, stream
+    "ptpu_trace_tree": [_P] * 8 + [_I, _I] + [_P] * 5,
+    # origin, direction, t_max, node_box, node_meta, links, woop, n_rays,
+    # n_nodes, occ_out, stream
+    "ptpu_occluded_tree": [_P] * 7 + [_I, _I] + [_P] * 2,
+    # origin, direction, t_init, node_box, node_meta, links, woop, mat,
+    # n_rays, n_pages, page_nodes, page_size, t_out, slot_out, normal_out,
+    # mat_out, stream
+    "ptpu_trace_tree_paged": [_P] * 8 + [_I] * 4 + [_P] * 5,
+}
+
+
 def _library():
     return cuda_build.load("cluster_trace", _SIGNATURES)
 
@@ -503,8 +753,8 @@ def occluded(clusters, origin, direction, t_max):
 def _same_device(tensors, device):
     for t in tensors:
         if t is not None and t.device != device:
-            raise ValueError("instance tables and rays lie on different "
-                             f"devices ({t.device} vs {device})")
+            raise ValueError("tables and rays lie on different devices "
+                             f"({t.device} vs {device})")
 
 
 def _inst_args(clusters, inst, r, time, device, with_imat):
@@ -604,3 +854,169 @@ def occluded_inst(clusters, inst, origin, direction, t_max, time=None):
     _raise_on(err, "occluded_dnf_inst_kernel")
     LAUNCHES["occluded_inst"] += 1
     return occ
+
+
+# --- big-scene kernels (paged sweep, cluster-tree walks) -----------------
+
+
+def _paged_library():
+    return cuda_build.load("cluster_trace_paged", _PAGED_SIGNATURES)
+
+
+def _tree_library():
+    return cuda_build.load("cluster_trace_tree", _TREE_SIGNATURES)
+
+
+def _closest_out(r, device):
+    return (torch.empty(r, dtype=torch.float32, device=device),
+            torch.empty(r, dtype=torch.int32, device=device),
+            torch.empty((r, 3), dtype=torch.float32, device=device),
+            torch.empty(r, dtype=torch.int32, device=device))
+
+
+def _page_args(clusters, pages, device):
+    """Checked (n_pages, page_size, page_nodes, node_box, node_meta,
+    oct_links) of a PageSet over ``clusters``."""
+    g, _, n = pages.node_box.shape
+    c = clusters.woop.shape[0]
+    if g == 0 or c % g:
+        raise ValueError(f"{c} clusters do not split into {g} pages")
+    tables = (
+        _checked(pages.node_box, torch.float32, (g, 6, n), "pages.node_box"),
+        _checked(pages.node_meta, torch.int32, (g, 2, n), "pages.node_meta"),
+        _checked(pages.oct_links, torch.int32, (g, 16, n),
+                 "pages.oct_links"),
+    )
+    _same_device(tables, device)
+    return (g, c // g, n) + tables
+
+
+def _hit_tables(clusters, device):
+    c = clusters.woop.shape[0]
+    tables = (
+        _checked(clusters.woop, torch.float32, (c, 4, 3 * CLUSTER_SIZE),
+                 "woop"),
+        _checked(clusters.normal, torch.float32, (c, 3, CLUSTER_SIZE),
+                 "normal"),
+        _checked(clusters.mat, torch.int32, (c, CLUSTER_SIZE), "mat"),
+    )
+    _same_device(tables, device)
+    return tables
+
+
+def trace_paged_dnf(clusters, pages, origin, direction, t_init):
+    """Paged closest hit (see the module contract). CPU tensors take
+    ``trace_paged_dnf_torch``; CUDA tensors launch
+    ``trace_paged_dnf_kernel``."""
+    dev = origin.device
+    if dev.type == "cpu":
+        return trace_paged_dnf_torch(clusters, pages, origin, direction,
+                                     t_init)
+    r, rays = _ray_args(origin, direction, t_init, "t_init")
+    c, (bmin, bmax, woop) = _cluster_args(clusters, dev)
+    _, normal_tab, mat_tab = _hit_tables(clusters, dev)
+    g, page_size, page_nodes, node_box, _, _ = _page_args(clusters, pages,
+                                                          dev)
+    n_real = _checked(pages.n_real, torch.int32, (g,), "pages.n_real")
+    _same_device((n_real,), dev)
+    out = _closest_out(r, dev)
+    if r == 0:
+        return out
+    lib = _paged_library()
+    err = lib.ptpu_trace_paged_dnf(
+        *(x.data_ptr() for x in rays), bmin.data_ptr(), bmax.data_ptr(),
+        woop.data_ptr(), normal_tab.data_ptr(), mat_tab.data_ptr(),
+        node_box.data_ptr(), n_real.data_ptr(), r, g, page_size, page_nodes,
+        *(x.data_ptr() for x in out),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "trace_paged_dnf_kernel")
+    LAUNCHES["trace_paged_dnf"] += 1
+    return out
+
+
+def _tree_args(clusters, device):
+    """Checked (n_nodes, node_box, node_meta, oct_links) of a flat set."""
+    if clusters.node_box is None:
+        raise ValueError("this ClusterSet carries no cluster tree")
+    n = clusters.node_box.shape[1]
+    tables = (
+        _checked(clusters.node_box, torch.float32, (6, n), "node_box"),
+        _checked(clusters.node_meta, torch.int32, (2, n), "node_meta"),
+        _checked(clusters.oct_links, torch.int32, (2, 8, n), "oct_links"),
+    )
+    _same_device(tables, device)
+    return (n,) + tables
+
+
+def trace_tree(clusters, origin, direction, t_init):
+    """Closest hit by the per-ray cluster-tree walk (see the module
+    contract). CPU tensors take ``trace_tree_torch``; CUDA tensors launch
+    ``trace_tree_kernel``."""
+    dev = origin.device
+    if dev.type == "cpu":
+        return trace_tree_torch(clusters, origin, direction, t_init)
+    r, rays = _ray_args(origin, direction, t_init, "t_init")
+    n, *tree = _tree_args(clusters, dev)
+    woop, _, mat_tab = _hit_tables(clusters, dev)
+    out = _closest_out(r, dev)
+    if r == 0:
+        return out
+    err = _tree_library().ptpu_trace_tree(
+        *(x.data_ptr() for x in rays), *(x.data_ptr() for x in tree),
+        woop.data_ptr(), mat_tab.data_ptr(), r, n,
+        *(x.data_ptr() for x in out),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "trace_tree_kernel")
+    LAUNCHES["trace_tree"] += 1
+    return out
+
+
+def occluded_tree(clusters, origin, direction, t_max):
+    """Any-hit occlusion by the per-ray cluster-tree walk (see the module
+    contract). CPU tensors take ``occluded_tree_torch``; CUDA tensors
+    launch ``occluded_tree_kernel``."""
+    dev = origin.device
+    if dev.type == "cpu":
+        return occluded_tree_torch(clusters, origin, direction, t_max)
+    r, rays = _ray_args(origin, direction, t_max, "t_max")
+    n, *tree = _tree_args(clusters, dev)
+    woop = _hit_tables(clusters, dev)[0]
+    occ = torch.empty(r, dtype=torch.bool, device=dev)
+    if r == 0:
+        return occ
+    err = _tree_library().ptpu_occluded_tree(
+        *(x.data_ptr() for x in rays), *(x.data_ptr() for x in tree),
+        woop.data_ptr(), r, n, occ.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "occluded_tree_kernel")
+    LAUNCHES["occluded_tree"] += 1
+    return occ
+
+
+def trace_tree_paged(clusters, pages, origin, direction, t_init):
+    """Closest hit by the per-ray walk of each page's tree in page order
+    (see the module contract). CPU tensors take
+    ``trace_tree_paged_torch``; CUDA tensors launch
+    ``trace_tree_paged_kernel``."""
+    dev = origin.device
+    if dev.type == "cpu":
+        return trace_tree_paged_torch(clusters, pages, origin, direction,
+                                      t_init)
+    r, rays = _ray_args(origin, direction, t_init, "t_init")
+    g, page_size, page_nodes, *tree = _page_args(clusters, pages, dev)
+    woop, _, mat_tab = _hit_tables(clusters, dev)
+    out = _closest_out(r, dev)
+    if r == 0:
+        return out
+    err = _tree_library().ptpu_trace_tree_paged(
+        *(x.data_ptr() for x in rays), *(x.data_ptr() for x in tree),
+        woop.data_ptr(), mat_tab.data_ptr(), r, g, page_nodes, page_size,
+        *(x.data_ptr() for x in out),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "trace_tree_paged_kernel")
+    LAUNCHES["trace_tree_paged"] += 1
+    return out

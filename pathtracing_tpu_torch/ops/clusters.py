@@ -1,5 +1,5 @@
-"""Cluster-packed triangle tables (the JAX package's ``ops/clusters.py``,
-host build only).
+"""Cluster-packed triangle tables, the threaded cluster tree and HBM pages
+(the JAX package's ``ops/clusters.py``, host build only).
 
 Triangles are packed into clusters of up to 128 by the binned-SAH builder
 with a 128-prim leaf size; each triangle is stored as a Woop unit-triangle
@@ -12,9 +12,17 @@ Degenerate padding slots use M = 0, b = (-1, -1, 1): u = -1, never a hit.
 ``expand_instances`` lays shared-geometry instances out as expanded
 (instance, prototype cluster) rows over one prototype ``ClusterSet``.
 
+Past the flat kernels' budget a scene walks a threaded binary tree over the
+cluster boxes (``build_cluster_tree``) with one set of links per direction
+octant (``build_octant_trees``), or is repacked into pages of up to
+``PAGE_CLUSTERS`` clusters, each with its own tree (``build_pages``,
+``PageSet``).
+
 The tables are byte-equal to the JAX package's numpy build (same code,
-same numpy). The cluster tree, octant links, candidate blocks and HBM
-pages that only the TPU tree and paged kernels read are not ported.
+same numpy). The TPU lookahead kernel's candidate blocks
+(``build_candidate_blocks``, ``cand_box``) are not ported: they exist
+because Mosaic has no per-lane gather, and no Hopper kernel reads them.
+``PageSet.cand_box`` is always None.
 """
 
 from __future__ import annotations
@@ -26,6 +34,11 @@ import numpy as np
 from pathtracing_tpu_torch.ops import bvh as bvh_ops
 
 CLUSTER_SIZE = 128  # triangles per cluster
+# The JAX package pages a scene whose cluster tree has more nodes than this
+# (its TPU lookahead kernel's candidate-block ceiling); the port pages under
+# the same condition so both packages route a scene alike.
+CAND_MAX_NODES = 16384
+PAGE_CLUSTERS = 2048    # clusters per HBM page (12 MB of Woop data)
 
 
 class ClusterSet(NamedTuple):
@@ -36,6 +49,14 @@ class ClusterSet(NamedTuple):
     woop:   (C, 4, 3*128) f32 — [M | b] columns, grouped u | v | w.
     normal: (C, 3, 128) f32 — unit geometric normal per slot.
     mat:    (C, 128) i32 — material id per slot (0 for padding).
+    node_box:  (6, N) f32 — threaded cluster-tree AABBs (xyz min, xyz
+               max). None where no tree was built.
+    node_meta: (2, N) i32 — [skip_link, cluster_id]; cluster_id == -1 for
+               interior nodes. Preorder: hit-successor is node+1, miss (or
+               after a leaf) jumps to skip_link; index N terminates.
+    oct_links: (2, 8, N) i32 — per-direction-octant threaded links over
+               the same node ids: [0] = hit_next (the octant's near child
+               first), [1] = miss_next (the continuation).
     """
 
     aabb_min: np.ndarray
@@ -43,6 +64,283 @@ class ClusterSet(NamedTuple):
     woop: np.ndarray
     normal: np.ndarray
     mat: np.ndarray
+    node_box: np.ndarray = None
+    node_meta: np.ndarray = None
+    oct_links: np.ndarray = None
+
+
+class PageSet(NamedTuple):
+    """Per-page traversal structures of a paged scene. Clusters are
+    renumbered page-contiguously (page g holds clusters [g*P, (g+1)*P) of
+    the flat ClusterSet, P = page size, the real ones first and then
+    padding clusters with inverted boxes and always-miss Woop data).
+
+    node_box:  (G, 6, Np) f32 per-page threaded-tree AABBs (trees padded
+               to the largest page's node count with inverted never-hit
+               nodes whose links all point at the terminator Np).
+    node_meta: (G, 2, Np) i32 [skip, PAGE-LOCAL cluster id].
+    oct_links: (G, 16, Np) i32 per-octant hit/miss links (flattened 2x8).
+    n_real:    (G,) i32 real clusters of each page (its tree's leaves);
+               the port's own field, counted once when the pages are built.
+    cand_box:  always None (the TPU lookahead kernel's candidate blocks
+               are not ported).
+    """
+
+    node_box: np.ndarray
+    node_meta: np.ndarray
+    oct_links: np.ndarray
+    n_real: np.ndarray
+    cand_box: np.ndarray = None
+
+
+def build_cluster_tree(aabb_min: np.ndarray, aabb_max: np.ndarray):
+    """Threaded binary tree over cluster AABBs (SAH split over all three
+    axes, leaf = one cluster).
+
+    Returns (node_box (6, N) f32, node_meta (2, N) i32, child (N, 2) i32,
+    axis (N,) i8, first_is_lower (N,) bool): the children in emission
+    order, the split axis and whether the first-emitted child is the
+    lower-centroid one feed ``build_octant_trees``.
+    """
+    c = aabb_min.shape[0]
+    centroid = (aabb_min + aabb_max) * 0.5
+    max_nodes = 2 * c - 1 if c else 1
+    box = np.empty((max_nodes, 6), np.float32)
+    meta = np.empty((max_nodes, 2), np.int32)
+    child = np.full((max_nodes, 2), -1, np.int32)
+    axis_arr = np.zeros(max_nodes, np.int8)
+    first_lower = np.zeros(max_nodes, np.bool_)
+    count = 0
+
+    def emit(ids):
+        nonlocal count
+        my = count
+        count += 1
+        box[my, :3] = aabb_min[ids].min(axis=0)
+        box[my, 3:] = aabb_max[ids].max(axis=0)
+        if len(ids) == 1:
+            meta[my] = (count, ids[0])
+            return my
+        meta[my, 1] = -1
+        # SAH sweep over all three axes: minimize A_l·n_l + A_r·n_r using
+        # prefix/suffix box unions of the sorted order.
+        best = (np.inf, None, None, 0)
+        k = len(ids)
+        for ax in range(3):
+            order = np.argsort(centroid[ids, ax], kind="stable")
+            s = ids[order]
+            lo, hi = aabb_min[s], aabb_max[s]
+            pre_lo = np.minimum.accumulate(lo, axis=0)
+            pre_hi = np.maximum.accumulate(hi, axis=0)
+            suf_lo = np.minimum.accumulate(lo[::-1], axis=0)[::-1]
+            suf_hi = np.maximum.accumulate(hi[::-1], axis=0)[::-1]
+
+            def sa(lo_, hi_):
+                d = np.maximum(hi_ - lo_, 0.0)
+                return (d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2]
+                        + d[:, 2] * d[:, 0])
+
+            n_l = np.arange(1, k)
+            cost = (sa(pre_lo[:-1], pre_hi[:-1]) * n_l
+                    + sa(suf_lo[1:], suf_hi[1:]) * (k - n_l))
+            j = int(np.argmin(cost))
+            if cost[j] < best[0]:
+                best = (float(cost[j]), s, j + 1, ax)
+        _, s, cut, axis = best
+        # ``left`` is the lower-centroid side along the winning axis by
+        # construction — build_octant_trees relies on that.
+        left, right = s[:cut], s[cut:]
+
+        def area(sel):
+            d = np.maximum(
+                aabb_max[sel].max(axis=0) - aabb_min[sel].min(axis=0), 0.0
+            )
+            return d[0] * d[1] + d[1] * d[2] + d[2] * d[0]
+
+        # Emit the larger-area child first (the order of the unordered
+        # walk; the octant links order children by direction instead).
+        lower_first = area(left) >= area(right)
+        if not lower_first:
+            left, right = right, left
+        child[my, 0] = emit(left)
+        child[my, 1] = emit(right)
+        axis_arr[my] = axis
+        first_lower[my] = lower_first
+        meta[my, 0] = count  # skip = end of subtree
+        return my
+
+    if c == 0:
+        box[0] = 0.0
+        meta[0] = (1, -1)
+        count = 1
+    else:
+        import sys
+
+        old = sys.getrecursionlimit()
+        sys.setrecursionlimit(max(old, 100_000))
+        try:
+            emit(np.arange(c))
+        finally:
+            sys.setrecursionlimit(old)
+
+    return (box[:count].T.copy(), meta[:count].T.copy(), child[:count],
+            axis_arr[:count], first_lower[:count])
+
+
+def build_octant_trees(child: np.ndarray, axis: np.ndarray,
+                       first_lower: np.ndarray) -> np.ndarray:
+    """Per-direction-octant threaded links: (2, 8, N) i32.
+
+    ``[0, o, n]`` = hit_next (descend into the octant's NEAR child — the
+    lower-coordinate child along the node's split axis when the octant's
+    direction is positive on that axis, else the upper), ``[1, o, n]`` =
+    miss_next (the continuation after skipping or finishing ``n``'s
+    subtree); a leaf's two links are both its continuation. All eight
+    orderings share node ids; index N terminates. A ray that follows its
+    own octant's links walks the tree front to back, so its first leaf
+    hits tighten best_t and the slab test's ``tn < best_t`` culls the
+    subtrees behind them.
+    """
+    n = child.shape[0]
+    links = np.empty((2, 8, n), np.int32)
+    # Octant bit layout: x>0 → +4, y>0 → +2, z>0 → +1 (a zero component
+    # counts as negative).
+    for o in range(8):
+        pos = ((o >> 2) & 1, (o >> 1) & 1, o & 1)
+        # Iterative DFS carrying the continuation.
+        stack = [(0, n)]
+        while stack:
+            m, cont = stack.pop()
+            a, b = int(child[m, 0]), int(child[m, 1])
+            if a < 0:
+                links[0, o, m] = cont
+                links[1, o, m] = cont
+                continue
+            lower, upper = (a, b) if first_lower[m] else (b, a)
+            near, far = (lower, upper) if pos[axis[m]] else (upper, lower)
+            links[0, o, m] = near
+            links[1, o, m] = cont
+            stack.append((near, far))
+            stack.append((far, cont))
+    return links
+
+
+def partition_pages(aabb_min: np.ndarray, aabb_max: np.ndarray,
+                    page_size: int):
+    """Spatial median partition of clusters into lists of <= page_size
+    ids (recursion order keeps pages spatially coherent)."""
+    centroid = (aabb_min + aabb_max) * 0.5
+    pages = []
+    stack = [np.arange(aabb_min.shape[0])]
+    while stack:
+        ids = stack.pop()
+        if len(ids) <= page_size:
+            pages.append(ids)
+            continue
+        ext = centroid[ids].max(axis=0) - centroid[ids].min(axis=0)
+        ax = int(np.argmax(ext))
+        order = np.argsort(centroid[ids, ax], kind="stable")
+        # Cut at a page_size multiple near the median, so every page but
+        # possibly the last is full.
+        half_pages = max(1, round(len(ids) / 2 / page_size))
+        cut = min(half_pages * page_size, len(ids) - 1)
+        stack.append(ids[order[cut:]])
+        stack.append(ids[order[:cut]])
+    return pages
+
+
+def build_pages(cs: ClusterSet, page_size: int = PAGE_CLUSTERS):
+    """Repack a ClusterSet page-contiguously and build per-page trees.
+
+    Returns (flat ClusterSet in page order, padded to G*page_size clusters
+    — slot ids shift accordingly —, the PageSet, and ``remap``: old
+    cluster id → new). Padding clusters get inverted boxes (min 3e38, max
+    -3e38, which a slab test passes for every ray) and always-miss Woop
+    data, and appear in no tree. The flat set's global tree is that of
+    ``cs`` (built over the real clusters when ``cs`` has none) with its
+    cluster ids renumbered to the page order, so the tree kernels keep
+    working on the same object.
+    """
+    pages = partition_pages(cs.aabb_min, cs.aabb_max, page_size)
+    g = len(pages)
+    c_pad = g * page_size
+
+    def pad_rows(arr, miss_fill):
+        out = np.empty((c_pad,) + arr.shape[1:], arr.dtype)
+        out[:] = miss_fill
+        for p, ids in enumerate(pages):
+            out[p * page_size: p * page_size + len(ids)] = arr[ids]
+        return out
+
+    aabb_min = pad_rows(cs.aabb_min, 3.0e38)
+    aabb_max = pad_rows(cs.aabb_max, -3.0e38)
+    woop = np.zeros((c_pad, 4, 3 * CLUSTER_SIZE), np.float32)
+    # Degenerate always-miss Woop pattern for padding clusters.
+    woop[:, 3, 0 * CLUSTER_SIZE: 1 * CLUSTER_SIZE] = -1.0
+    woop[:, 3, 1 * CLUSTER_SIZE: 2 * CLUSTER_SIZE] = -1.0
+    woop[:, 3, 2 * CLUSTER_SIZE: 3 * CLUSTER_SIZE] = 1.0
+    normal = np.zeros((c_pad, 3, CLUSTER_SIZE), np.float32)
+    mat = np.zeros((c_pad, CLUSTER_SIZE), np.int32)
+    for p, ids in enumerate(pages):
+        sl = slice(p * page_size, p * page_size + len(ids))
+        woop[sl] = cs.woop[ids]
+        normal[sl] = cs.normal[ids]
+        mat[sl] = cs.mat[ids]
+
+    # Per-page trees over the REAL clusters (page-local ids 0..len-1).
+    boxes, metas, links_l = [], [], []
+    np_max = max(2 * max(len(ids) for ids in pages) - 1, 1)
+    for ids in pages:
+        nb, nm, child, axis, flo = build_cluster_tree(
+            cs.aabb_min[ids], cs.aabb_max[ids]
+        )
+        ol = build_octant_trees(child, axis, flo)
+        n = nb.shape[1]
+        pad = np_max - n
+        if pad:
+            nb_pad = np.empty((6, pad), np.float32)
+            nb_pad[0:3] = 3.0e38
+            nb_pad[3:6] = -3.0e38
+            nb = np.concatenate([nb, nb_pad], axis=1)
+            nm_pad = np.empty((2, pad), np.int32)
+            nm_pad[0] = np_max
+            nm_pad[1] = -1
+            nm = np.concatenate([nm, nm_pad], axis=1)
+            ol = np.concatenate(
+                [ol, np.full((2, 8, pad), np_max, np.int32)], axis=2
+            )
+        # Real links that pointed at the page terminator (n) must point
+        # past the padded tree too; any id >= n terminates at np_max.
+        nm[0] = np.where(nm[0] >= n, np_max, nm[0])
+        ol = np.where(ol >= n, np_max, ol)
+        boxes.append(nb)
+        metas.append(nm)
+        links_l.append(ol.reshape(16, np_max))
+
+    if cs.node_box is None:
+        nb, nm, child, axis, flo = build_cluster_tree(cs.aabb_min,
+                                                      cs.aabb_max)
+        ol = build_octant_trees(child, axis, flo)
+    else:
+        nb, nm, ol = cs.node_box, cs.node_meta, cs.oct_links
+    # Renumber the global tree's cluster ids to the page order.
+    remap = np.full(cs.aabb_min.shape[0], -1, np.int64)
+    for p, ids in enumerate(pages):
+        remap[ids] = p * page_size + np.arange(len(ids))
+    cid = nm[1]
+    nm = nm.copy()
+    nm[1] = np.where(cid >= 0, remap[np.maximum(cid, 0)], -1)
+    flat = ClusterSet(
+        aabb_min=aabb_min, aabb_max=aabb_max, woop=woop, normal=normal,
+        mat=mat, node_box=nb, node_meta=nm, oct_links=ol,
+    )
+    pageset = PageSet(
+        node_box=np.stack(boxes),
+        node_meta=np.stack(metas),
+        oct_links=np.stack(links_l),
+        n_real=np.array([len(ids) for ids in pages], np.int32),
+    )
+    return flat, pageset, remap
 
 
 def build_clusters(
@@ -126,9 +424,14 @@ def build_clusters(
     mat[:] = np.where(dead | ~valid, 0, matp[tri])
     slot_to_tri = np.where(valid, perm[tri], -1).astype(np.int32).ravel()
 
+    node_box, node_meta, child, axis, first_lower = build_cluster_tree(
+        aabb_min, aabb_max
+    )
+    oct_links = build_octant_trees(child, axis, first_lower)
     return (
         ClusterSet(aabb_min=aabb_min, aabb_max=aabb_max, woop=woop,
-                   normal=normal, mat=mat),
+                   normal=normal, mat=mat, node_box=node_box,
+                   node_meta=node_meta, oct_links=oct_links),
         perm,
         slot_to_tri,
     )

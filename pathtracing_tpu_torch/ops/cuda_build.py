@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources at first use and load them with ctypes.
+"""Build the port's CUDA and host C++ sources at first use and load them
+with ctypes.
 
 Every ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
@@ -8,6 +9,12 @@ an unchanged one loads at once. ``build_all`` starts one ``nvcc`` per
 source, all together. ``--fmad=false`` keeps the kernels' float rounding
 equal to the plain torch versions' (no contracted multiply-adds), so the
 card-side check against them can be tight.
+
+``csrc/<name>.cpp`` sources are host code (the SAH BVH builder): the host
+C++ compiler (``$CXX``, else ``g++``) builds each into the same directory,
+named the same way, at first use (``build_host``). Every build writes a
+temporary name and renames it, so processes that build at once do not
+race.
 
 Nothing is compiled when this module is imported: the CPU test suite
 imports every module on a machine without ``nvcc``.
@@ -26,6 +33,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, ".build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+# No contracted multiply-adds and no host-specific instructions
+# (-march=native), so the host library rounds as the NumPy reference does.
+HOST_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
 
 _LOADED = {}
 
@@ -42,15 +52,24 @@ def nvcc_path() -> str:
     return path
 
 
-def _library_path(name: str) -> str:
-    """Where the library of ``csrc/<name>.cu`` goes: named by a hash of the
-    source, the shared headers (``csrc/*.cuh``) and the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for fname in [f"{name}.cu", *headers]:
+def _hashed_path(name: str, files, flags) -> str:
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for fname in files:
         with open(os.path.join(CSRC, fname), "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def _library_path(name: str) -> str:
+    """Where the library of ``csrc/<name>.cu`` goes: named by a hash of the
+    source, the shared headers (``csrc/*.cuh``) and the flags."""
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    return _hashed_path(name, [f"{name}.cu", *headers], NVCC_FLAGS)
+
+
+def _host_library_path(name: str) -> str:
+    """Where the library of the host source ``csrc/<name>.cpp`` goes."""
+    return _hashed_path(name, [f"{name}.cpp"], HOST_FLAGS)
 
 
 def sources():
@@ -64,26 +83,53 @@ def build_all(names=None):
     returns {name: library path}."""
     names = sources() if names is None else list(names)
     outs = {name: _library_path(name) for name in names}
+    _compile([([nvcc_path(), *NVCC_FLAGS], os.path.join(CSRC, f"{name}.cu"),
+               out) for name, out in outs.items()])
+    return outs
+
+
+def _compile(jobs) -> None:
+    """Run each (compiler command, source, library) of ``jobs`` whose
+    library is missing, all processes started together; each writes a
+    temporary name that is renamed once it is complete."""
     procs = []
-    for name, out in outs.items():
+    for cmd, src, out in jobs:
         if os.path.exists(out):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        src = os.path.join(CSRC, f"{name}.cu")
-        procs.append((name, out, tmp, subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+        procs.append((src, out, tmp, subprocess.Popen(
+            [*cmd, "-o", tmp, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
-    for name, out, tmp, proc in procs:
+    for src, out, tmp, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
+            failed.append(f"{proc.args[0]} failed for "
+                          f"{os.path.relpath(src, _PKG)}:\n{log}")
         else:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return outs
+
+
+def cxx_path() -> str:
+    """The host C++ compiler: ``$CXX``, else ``g++`` or ``c++`` on PATH."""
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler ($CXX, g++ or c++ on PATH) "
+                       "to build the port's host libraries")
+
+
+def build_host(name: str) -> str:
+    """Compile the host source ``csrc/<name>.cpp`` unless its library
+    exists; returns the library's path."""
+    out = _host_library_path(name)
+    _compile([([cxx_path(), *HOST_FLAGS], os.path.join(CSRC, f"{name}.cpp"),
+               out)])
+    return out
 
 
 def build(name: str) -> str:
@@ -92,14 +138,15 @@ def build(name: str) -> str:
     return build_all([name])[name]
 
 
-def load(name: str, signatures) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built first if needed),
-    with ``argtypes``/``restype`` set from ``signatures``
-    ({function: [ctypes types]}; every function returns a CUDA error code
-    as int)."""
+def load(name: str, signatures, host: bool = False) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (``host``: of
+    ``csrc/<name>.cpp``), built first if needed, with
+    ``argtypes``/``restype`` set from ``signatures``
+    ({function: [ctypes types]}; every function returns an int error
+    code, a CUDA error for the kernels)."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build(name))
+        lib = ctypes.CDLL(build_host(name) if host else build(name))
         for fn, argtypes in signatures.items():
             f = getattr(lib, fn)
             f.argtypes = list(argtypes)
