@@ -7,7 +7,9 @@ Phases, in order; any failure exits non-zero:
 
   1. device  — the card's name and power limit; TF32 off.
   2. build   — compile the port's CUDA sources into the git-ignored build
-               directory, one ``nvcc`` per source, all started together.
+               directory, one ``nvcc`` per source, all started together;
+               print each kernel's registers, stack and spills
+               (``ptxas -v``).
   3. kernels — each hand-written kernel against its plain torch version
                on the card:
                * the flat traversal pair on the flagship's own waves
@@ -22,7 +24,8 @@ Phases, in order; any failure exits non-zero:
                  per-ray random shutter times, once with the motion set
                  and no time given (mid-shutter); then on
                  instanced_demo(grid=19), 5,777 expanded clusters (six
-                 shared-memory chunks of boxes), on 262,157 rays;
+                 shared-memory chunks of boxes), on 262,157 rays. The
+                 closest hit is held bit for bit (t, slot, normal, mat);
                * the row gather against ``torch.index_select``, bit for
                  bit, for the many-light scene's (288, 24) packed table
                  and the 2,073,600 indices of a real light pick, and for
@@ -30,17 +33,18 @@ Phases, in order; any failure exits non-zero:
                  unaligned table, indices below 0 and past the table);
                * big scenes: cornell_mesh(8) (1.3 M triangles, 8 pages of
                  2,048 clusters), built through ``scenes.cornell_mesh``.
-                 The paged sweep on its camera, bounce and both shadow
-                 waves; the tree walks on the unpaged ClusterSet of the
-                 same triangles (closest hit on the camera and bounce
-                 waves, any hit on the shadow waves) and on the paged set
-                 (per-page walk); the paged sweep again on the same
-                 triangles paged by 1,536 (two shared-memory chunks of
-                 boxes a page). Each kernel runs and is timed on the whole
-                 wave; it is held bit for bit against its plain version,
-                 and under the tie contract against ``trace_torch``, on
-                 65,549 rays drawn from the wave (the plain versions
-                 synchronise with the host once per cluster or walk step).
+                 The paged walk's closest hit on its camera, bounce and
+                 both shadow waves, and its any hit on both shadow waves;
+                 the tree walks on the unpaged ClusterSet of the same
+                 triangles (closest hit on the camera and bounce waves,
+                 any hit on the shadow waves) and on the paged set
+                 (per-page walk); the paged closest hit again on the same
+                 triangles paged by 1,536 (10 pages). Each kernel runs and
+                 is timed on the whole wave; it is held bit for bit
+                 against its plain version, and under the tie contract
+                 against ``trace_torch``, on 65,549 rays drawn from the
+                 wave (the plain versions synchronise with the host once
+                 per cluster or walk step).
                Each traversal kernel's bound counts the cluster
                evaluations its wave needs in any visiting order
                (``needed_evals``, a slab-test pass over the whole wave
@@ -56,9 +60,9 @@ Phases, in order; any failure exits non-zero:
                before a scene's timed steps and read just after: the
                flagship must launch the flat pair, the instanced scene the
                instanced pair and no flat kernel, the many-light scene the
-               gather, cornell_mesh(8) the paged sweep and no flat kernel,
-               the unpaged one both tree walks and neither the flat nor the
-               paged kernels.
+               gather, cornell_mesh(8) the paged pair (closest hit and any
+               hit) and no flat kernel, the unpaged one both tree walks
+               and neither the flat nor the paged kernels.
   5. check   — each image is finite with a plausible mean, and a small
                render of each scene through the kernels agrees with the
                same render through the plain versions: 64x64 for the
@@ -66,7 +70,7 @@ Phases, in order; any failure exits non-zero:
                at depth 4 for the unpaged cornell_mesh(8).
 
 It prints one JSON line per kernel result, a ``{"kernels": [...]}`` line
-with all nine kernels, the card's name and power limit, and as its last
+with all ten kernels, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. It imports nothing of JAX. Without
 a CUDA device, or without the package beside it, it exits non-zero and
 prints no result.
@@ -115,7 +119,7 @@ GATHER_SHAPE = (288, 24, WIDTH * HEIGHT)   # (L, W, N) of the many-light pick
 TPU_SOURCE = "pathtracing_tpu/ops/cluster_trace.py"
 BIG_SUBDIVISIONS = 8         # cornell_mesh(8): 14,736 clusters, 8 pages
 BIG_SUBSET = 65_549          # rays of a big-scene wave held against plain
-FORCED_PAGE = 1536           # a page of two shared-memory box chunks
+FORCED_PAGE = 1536           # cornell_mesh(8) in 10 pages
 # Tree-node bytes: box 24, meta 8, the 16 octant links 64.
 NODE_BYTES = 96
 
@@ -730,6 +734,55 @@ def phase(name):
     return time.perf_counter()
 
 
+def demangled_kernel(mangled):
+    """The ``*_kernel`` name in a mangled symbol, with ``<true>`` or
+    ``<false>`` for a kernel templated on one bool. Each name is read by
+    its length prefix: the anonymous namespace's hash may end in digits
+    that run into the kernel name's length."""
+    import re
+
+    pos = 0
+    while m := re.compile(r"(\d+)[A-Za-z_]").search(mangled, pos):
+        start, pos = m.end(1), m.end(1) + int(m.group(1))
+        name = mangled[start:pos]
+        if name.endswith("_kernel"):
+            flag = {"ILb1E": "<true>", "ILb0E": "<false>"}
+            return name + flag.get(mangled[pos:pos + 5], "")
+    return mangled
+
+
+def ptxas_report(names):
+    """{kernel: {"registers", "stack_bytes", "spill_stores", "spill_loads",
+    "log"}} from the ``ptxas -v`` output of each built source (template
+    kernels as ``name<true>`` / ``name<false>``); ``log`` says whether this
+    run compiled the library or read the log of a cached build."""
+    import re
+
+    from pathtracing_tpu_torch.ops import cuda_build
+
+    out = {}
+    for src in names:
+        kernel = None
+        log = ("compiled in this run" if cuda_build.compiled_here(src)
+               else "cached build")
+        for line in cuda_build.build_log(src).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                kernel = demangled_kernel(m.group(1))
+                out[kernel] = {"log": log}
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and kernel:
+                out[kernel].update(stack_bytes=int(m.group(1)),
+                                   spill_stores=int(m.group(2)),
+                                   spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                out[kernel]["registers"] = int(m.group(1))
+    return out
+
+
 def kernel_entry(name, kernel, source, replaces, launches, waves, main,
                  bound_of, library_ms=None, **extra):
     """One entry of the ``kernels`` line. ``waves``: {wave: result of a
@@ -822,8 +875,9 @@ def big_scene_checks(camera, config, failures):
             return refs[key]
         return ref
 
-    results = {k: {} for k in ("trace_paged_dnf", "trace_tree",
-                               "occluded_tree", "trace_tree_paged")}
+    results = {k: {} for k in ("trace_paged_dnf", "occluded_paged_dnf",
+                               "trace_tree", "occluded_tree",
+                               "trace_tree_paged")}
 
     def run_check(name, kernel, plain, tables, key, wname, **extra):
         """Row ``name`` on wave ``wname``: bit for bit against its plain
@@ -831,7 +885,7 @@ def big_scene_checks(camera, config, failures):
         ``tables`` on the rays ``sub``. The evaluations a wave needs are
         counted once for each query on it: every closest-hit kernel finds
         the same final t, so rows 6, 7 and 9 share one bound."""
-        any_hit = name == "occluded_tree"
+        any_hit = name.startswith("occluded")
         count = (wname, any_hit)
         kw = dict(chunk=BIG_SUBSET, sub=sub, reference=reference(tables, key),
                   boxes=None if count in needed else boxes)
@@ -847,12 +901,19 @@ def big_scene_checks(camera, config, failures):
 
     def paged(c, p):
         return (lambda o, d, cap: ct.trace_paged_dnf(c, p, o, d, cap),
-                lambda o, d, cap, stats: ct.trace_paged_dnf_torch(
+                lambda o, d, cap, stats: ct.trace_paged_walk_torch(
                     c, p, o, d, cap, stats=stats))
 
     for wname in ("camera", "bounce", "camera_shadow", "bounce_shadow"):
         run_check("trace_paged_dnf", *paged(cl, pages), cl, "paged:" + wname,
                   wname)
+    for wname in ("camera_shadow", "bounce_shadow"):
+        run_check("occluded_paged_dnf",
+                  lambda o, d, cap: ct.occluded_paged_dnf(cl, pages, o, d,
+                                                          cap),
+                  lambda o, d, cap, stats: ct.occluded_paged_dnf_torch(
+                      cl, pages, o, d, cap, stats=stats),
+                  cl, "paged:" + wname, wname)
     for wname in ("camera", "bounce"):
         run_check("trace_tree", lambda o, d, cap: ct.trace_tree(flat, o, d,
                                                                 cap),
@@ -879,15 +940,23 @@ def big_scene_checks(camera, config, failures):
 
 
 def big_entries(big, big_launches, tree_launches):
-    """The ``kernels`` entries of rows 6-9 of the port table."""
+    """The ``kernels`` entries of rows 6-9 of the port table (row 6 as its
+    closest hit and its any hit)."""
     src = "pathtracing_tpu_torch/csrc/"
     res = big["results"]
     n_real, n_flat = big["n_real"], big["n_flat"]
     paged_nodes = big["n_pages"] * big["page_nodes"]
+    # Row 6 keeps the query's own tables (a box, the Woop rows and, for the
+    # closest hit, normal and material per real cluster), as rows 1-5 do:
+    # its page trees are the walk's cost, not the query's.
     rows = (
         ("trace_paged_dnf", "cluster_trace_paged.cu", 2516,
          big_launches["trace_paged_dnf"], "camera", 52, None,
-         f"cornell_mesh({BIG_SUBDIVISIONS}) render, closest hit and shadow"),
+         f"cornell_mesh({BIG_SUBDIVISIONS}) render, closest hit"),
+        ("occluded_paged_dnf", "cluster_trace_paged.cu", 2516,
+         big_launches["occluded_paged_dnf"], "camera_shadow", 29, None,
+         f"cornell_mesh({BIG_SUBDIVISIONS}) render, shadow rays (the JAX "
+         "package answers them with its closest-hit page sweep)"),
         ("trace_tree", "cluster_trace_tree.cu", 2002,
          tree_launches["trace_tree"], "camera", 52,
          n_flat * (WOOP_BYTES + MAT_BYTES) + big["n_nodes"] * NODE_BYTES,
@@ -934,6 +1003,8 @@ def run() -> dict:
     libs = cuda_build.build_all()
     print(f"build: {sorted(os.path.relpath(p, ROOT) for p in libs.values())}"
           f" ({time.perf_counter() - t:.2f} s)", flush=True)
+    ptxas = ptxas_report(libs)
+    print("registers " + json.dumps(ptxas), flush=True)
 
     def config_for(background="black"):
         return RenderConfig(
@@ -1004,7 +1075,7 @@ def run() -> dict:
         for wname in ("camera", "bounce"):
             res = check_trace(tk, tp, waves[wname] + extra,
                               chunk=INST_PLAIN_CHUNK, strict=True,
-                              boxes=boxes)
+                              normal_tol=0.0, boxes=boxes)
             res["motion"] = vname != "static"
             inst_results["trace"][f"{vname}:{wname}"] = res
             report("trace_dnf_inst", res, failures, variant=vname,
@@ -1027,7 +1098,7 @@ def run() -> dict:
     tk, tp, ok, op = inst_fns(big_scene.clusters, big_scene.instances)
     report("trace_dnf_inst",
            check_trace(tk, tp, big_waves["camera"], chunk=INST_PLAIN_CHUNK,
-                       strict=True),
+                       strict=True, normal_tol=0.0),
            failures, wave="grid19", expanded=big_exp)
     report("occluded_dnf_inst",
            check_occluded(ok, op, big_waves["camera_shadow"],
@@ -1072,10 +1143,13 @@ def run() -> dict:
     if lights_launches["gather_rows"] <= 0:
         raise SmokeFailure("the many-light render launched no gather kernel")
     big_label = f"cornell_mesh({BIG_SUBDIVISIONS})"
-    _, big_launches = timed_render(big_label, big["scene"], camera, config,
-                                   card, ("trace_paged_dnf_kernel",))
-    if big_launches["trace_paged_dnf"] <= 0:
-        raise SmokeFailure(f"the {big_label} render launched no paged kernel")
+    _, big_launches = timed_render(
+        big_label, big["scene"], camera, config, card,
+        ("trace_paged_dnf_kernel", "occluded_paged_dnf_kernel"))
+    for name in ("trace_paged_dnf", "occluded_paged_dnf"):
+        if big_launches[name] <= 0:
+            raise SmokeFailure(f"the {big_label} render launched no {name} "
+                               "kernel")
     for name in ("trace", "occluded"):
         if big_launches[name] != 0:
             raise SmokeFailure(f"the {big_label} render launched the flat "
@@ -1092,7 +1166,8 @@ def run() -> dict:
         if tree_launches[name] <= 0:
             raise SmokeFailure(f"the tree-route render launched no {name} "
                                "kernel")
-    for name in ("trace", "occluded", "trace_paged_dnf"):
+    for name in ("trace", "occluded", "trace_paged_dnf",
+                 "occluded_paged_dnf"):
         if tree_launches[name] != 0:
             raise SmokeFailure(f"the tree-route render launched the {name} "
                                "kernel")
@@ -1113,8 +1188,12 @@ def run() -> dict:
                        lights_cam_cfg, "black")
     paged_small = scenes.cornell_mesh_builder(3).build(DEVICE,
                                                        page_clusters=16)
-    small_render_check("cornell_mesh(3) paged by 16", paged_small,
-                       paged_small, cam_cfg, "black")
+    small_paged = small_render_check("cornell_mesh(3) paged by 16",
+                                     paged_small, paged_small, cam_cfg,
+                                     "black")
+    if min(small_paged["trace_paged_dnf"],
+           small_paged["occluded_paged_dnf"]) <= 0:
+        raise SmokeFailure("the small paged render left the paged kernels")
     small_tree = small_render_check(tree_label, tree_scene, tree_scene,
                                     cam_cfg, "black", size=32, depth=4)
     if min(small_tree["trace_tree"], small_tree["occluded_tree"]) <= 0:
@@ -1163,6 +1242,11 @@ def run() -> dict:
         "bytes": gather_res["bytes"], "vs_plain": "agree",
     })
     kernels += big_entries(big, big_launches, tree_launches)
+    for entry in kernels:
+        entry["ptxas"] = {k: v for k, v in ptxas.items()
+                          if k.split("<")[0] == entry["kernel"]}
+        if not entry["ptxas"]:
+            raise SmokeFailure(f"no ptxas -v report for {entry['kernel']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": kind,

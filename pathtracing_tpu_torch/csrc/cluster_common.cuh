@@ -1,13 +1,15 @@
 // Shared device helpers of the cluster traversal kernels
 // (cluster_trace.cu: flat scenes; cluster_trace_inst.cu: instanced scenes;
 // cluster_trace_paged.cu: paged scenes; cluster_trace_tree.cu: the
-// cluster-tree walks): the ray record, the safe reciprocal, the
-// shared-memory box staging, the slab test, the Woop triangle test, the
-// closest hit and any hit within one cluster, and the block-wide
-// index-order box sweep. Every multiply and add is written in the order of
-// the plain torch versions (ops/cluster_trace.py: _slab, _pair_eval) and
-// the sources are built with --fmad=false, so a kernel's t equals its
-// plain version's bit for bit.
+// cluster-tree walks): the ray record, the safe reciprocal, the direction
+// octant, the shared-memory box staging, the slab test, the Woop triangle
+// test, the closest hit and any hit within one cluster on one lane or on
+// the whole warp, and the block-wide index-order box sweep. Every multiply
+// and add is written in the order of the plain torch versions
+// (ops/cluster_trace.py: _slab, _pair_eval) and the sources are built with
+// --fmad=false, so a kernel's t equals its plain version's bit for bit.
+// The Woop tests are float32 multiply-adds on the CUDA cores: a tensor-core
+// product would round through TF32, which breaks geometry.
 
 #pragma once
 
@@ -46,6 +48,13 @@ __device__ __forceinline__ Ray load_ray(const float* origin,
   return r;
 }
 
+// Direction octant of a ray, the layout of the trees' octant links: x>0 ->
+// +4, y>0 -> +2, z>0 -> +1 (a zero component counts as negative).
+__device__ __forceinline__ int octant(const Ray& r) {
+  return (r.d[0] > 0.0f ? 4 : 0) + (r.d[1] > 0.0f ? 2 : 0) +
+         (r.d[2] > 0.0f ? 1 : 0);
+}
+
 // Stage boxes [c0, c0 + n) into shared memory as box[axis][c - c0]
 // (axis 0..2 = min, 3..5 = max).
 __device__ __forceinline__ void stage_boxes(float (*box)[kBoxChunk],
@@ -61,20 +70,36 @@ __device__ __forceinline__ void stage_boxes(float (*box)[kBoxChunk],
   }
 }
 
+// Near and far distances (tn, tf) of a ray through one box whose axis-a
+// bounds are lo[a * stride] and hi[a * stride].
+__device__ __forceinline__ void slab_range(const float* lo, const float* hi,
+                                           int stride, const Ray& r,
+                                           float& tn, float& tf) {
+  tn = -kBig;
+  tf = kBig;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float t0 = (lo[a * stride] - r.o[a]) * r.inv[a];
+    const float t1 = (hi[a * stride] - r.o[a]) * r.inv[a];
+    tn = fmaxf(tn, fminf(t0, t1));
+    tf = fminf(tf, fmaxf(t0, t1));
+  }
+}
+
+// Slab test of one box against a ray's best t (the plain versions' _slab).
+__device__ __forceinline__ bool slab_test(const float* lo, const float* hi,
+                                          int stride, const Ray& r,
+                                          float best) {
+  float tn, tf;
+  slab_range(lo, hi, stride, r, tn, tf);
+  return (tn <= tf) && (tf > kTMin) && (tn < best);
+}
+
 // Slab test of one box stored as six floats `stride` apart (xyz min, xyz
 // max): shared-memory chunks and the trees' (6, N) node tables alike.
 __device__ __forceinline__ bool slab_strided(const float* b, int stride,
                                              const Ray& r, float best) {
-  float tn = -kBig;
-  float tf = kBig;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float t0 = (b[a * stride] - r.o[a]) * r.inv[a];
-    const float t1 = (b[(3 + a) * stride] - r.o[a]) * r.inv[a];
-    tn = fmaxf(tn, fminf(t0, t1));
-    tf = fminf(tf, fmaxf(t0, t1));
-  }
-  return (tn <= tf) && (tf > kTMin) && (tn < best);
+  return slab_test(b, b + 3 * stride, stride, r, best);
 }
 
 __device__ __forceinline__ bool slab(const float (*box)[kBoxChunk], int k,
@@ -82,26 +107,43 @@ __device__ __forceinline__ bool slab(const float (*box)[kBoxChunk], int k,
   return slab_strided(&box[0][k], kBoxChunk, r, best);
 }
 
-// Woop evaluation of triangle `j` of one cluster (w points at its
-// (4, 384) tensor). Returns t, or kBig when the ray misses it or the hit
+// The Woop data of one triangle: for each component (u, v, w) its four
+// rows w0..w3.
+struct WoopTri {
+  float w[3][4];
+};
+
+// Triangle `j` of one cluster (w points at its (4, 384) tensor). Across
+// the lanes of a warp that read j = lane + 32k, each of the twelve loads
+// is one coalesced 128-byte access.
+__device__ __forceinline__ WoopTri load_tri(const float* __restrict__ w,
+                                            int j) {
+  WoopTri tri;
+#pragma unroll
+  for (int comp = 0; comp < 3; ++comp) {
+#pragma unroll
+    for (int row = 0; row < 4; ++row) {
+      tri.w[comp][row] = __ldg(w + row * kWoopCols + comp * kClusterSize + j);
+    }
+  }
+  return tri;
+}
+
+// Woop test of one triangle: t, or kBig when the ray misses it or the hit
 // is not inside (T_MIN, cap). Operation order matches _pair_eval.
-__device__ __forceinline__ float woop_hit(const float* __restrict__ w,
-                                          int j, const Ray& r, float cap) {
+__device__ __forceinline__ float woop_test(const WoopTri& tri, const Ray& r,
+                                           float cap) {
   float op[3];
   float dp[3];
 #pragma unroll
   for (int comp = 0; comp < 3; ++comp) {
-    const int col = comp * kClusterSize + j;
-    const float w0 = __ldg(w + col);
-    const float w1 = __ldg(w + kWoopCols + col);
-    const float w2 = __ldg(w + 2 * kWoopCols + col);
-    const float w3 = __ldg(w + 3 * kWoopCols + col);
-    float o = w3 + r.o[0] * w0;
-    o = o + r.o[1] * w1;
-    o = o + r.o[2] * w2;
-    float d = r.d[0] * w0;
-    d = d + r.d[1] * w1;
-    d = d + r.d[2] * w2;
+    const float* w = tri.w[comp];
+    float o = w[3] + r.o[0] * w[0];
+    o = o + r.o[1] * w[1];
+    o = o + r.o[2] * w[2];
+    float d = r.d[0] * w[0];
+    d = d + r.d[1] * w[1];
+    d = d + r.d[2] * w[2];
     op[comp] = o;
     dp[comp] = d;
   }
@@ -112,6 +154,12 @@ __device__ __forceinline__ float woop_hit(const float* __restrict__ w,
   const bool ok = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
                   (t > kTMin) && (t < cap);
   return ok ? t : kBig;
+}
+
+// Woop evaluation of triangle `j` of one cluster.
+__device__ __forceinline__ float woop_hit(const float* __restrict__ w,
+                                          int j, const Ray& r, float cap) {
+  return woop_test(load_tri(w, j), r, cap);
 }
 
 // Closest hit of a ray among the 128 triangles of one cluster (w points at
@@ -139,6 +187,117 @@ __device__ __forceinline__ bool any_in_cluster(const float* __restrict__ w,
     if (woop_hit(w, j, r, cap) < cap) return true;
   }
   return false;
+}
+
+// --- The whole warp on one (ray, cluster) pair -------------------------
+// Lane l takes triangles l, l + 32, l + 64 and l + 96 of the cluster, so
+// each Woop row load is one coalesced 128-byte access and the 128 tests
+// take four steps instead of 128 on one lane. Every function here is
+// called by all 32 lanes with warp-uniform arguments where noted.
+
+constexpr int kWarp = 32;
+constexpr int kTriPerLane = kClusterSize / kWarp;
+
+struct WarpCluster {
+  WoopTri tri[kTriPerLane];
+};
+
+__device__ __forceinline__ void load_warp_cluster(WarpCluster& wc,
+                                                  const float* __restrict__ w,
+                                                  int lane) {
+#pragma unroll
+  for (int k = 0; k < kTriPerLane; ++k) {
+    wc.tri[k] = load_tri(w, lane + kWarp * k);
+  }
+}
+
+// Lane `src`'s origin and direction (the Woop test reads no inverse).
+__device__ __forceinline__ Ray shfl_ray(const Ray& r, int src) {
+  Ray q = {};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    q.o[a] = __shfl_sync(kFull, r.o[a], src);
+    q.d[a] = __shfl_sync(kFull, r.d[a], src);
+  }
+  return q;
+}
+
+// Closest hit of the warp-uniform ray q among the cluster's triangles,
+// capped at the warp-uniform cap: on every lane the smallest t (kBig when
+// none) and in `j_min` the smallest triangle index that reaches it. The
+// five butterfly steps keep the smaller (t, index) pair, so the result is
+// closest_in_cluster's serial scan.
+__device__ __forceinline__ float warp_closest(const WarpCluster& wc,
+                                              const Ray& q, float cap,
+                                              int lane, int& j_min) {
+  float t_min = kBig;
+  j_min = kClusterSize;
+#pragma unroll
+  for (int k = 0; k < kTriPerLane; ++k) {
+    const float t = woop_test(wc.tri[k], q, cap);
+    if (t < t_min) {
+      t_min = t;
+      j_min = lane + kWarp * k;
+    }
+  }
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    const float t2 = __shfl_xor_sync(kFull, t_min, off);
+    const int j2 = __shfl_xor_sync(kFull, j_min, off);
+    if (t2 < t_min || (t2 == t_min && j2 < j_min)) {
+      t_min = t2;
+      j_min = j2;
+    }
+  }
+  return t_min;
+}
+
+// The warp evaluates cluster c (its triangles in wc) for each lane of the
+// warp-uniform mask `group`, that lane's ray q broadcast and capped at its
+// best (strict < across clusters, as the serial sweeps). Returns true on
+// a lane whose best improved.
+__device__ __forceinline__ bool warp_closest_group(const WarpCluster& wc,
+                                                   unsigned group,
+                                                   const Ray& q, int c,
+                                                   int lane, float& best,
+                                                   int& best_slot) {
+  bool improved = false;
+  while (group != 0) {
+    const int m = __ffs(group) - 1;
+    group &= group - 1;
+    const Ray qm = shfl_ray(q, m);
+    const float cap = __shfl_sync(kFull, best, m);
+    int j_min;
+    const float t_min = warp_closest(wc, qm, cap, lane, j_min);
+    if (lane == m && t_min < best) {
+      best = t_min;
+      best_slot = c * kClusterSize + j_min;
+      improved = true;
+    }
+  }
+  return improved;
+}
+
+// Any hit: for each lane of `group`, whether some triangle of the cluster
+// lies strictly inside (T_MIN, cap) of that lane's ray and cap. Returns
+// true on a lane whose ray is occluded.
+__device__ __forceinline__ bool warp_any_group(const WarpCluster& wc,
+                                               unsigned group, const Ray& q,
+                                               float cap, int lane) {
+  bool occluded = false;
+  while (group != 0) {
+    const int m = __ffs(group) - 1;
+    group &= group - 1;
+    const Ray qm = shfl_ray(q, m);
+    const float cap_m = __shfl_sync(kFull, cap, m);
+    bool hit = false;
+#pragma unroll
+    for (int k = 0; k < kTriPerLane; ++k) {
+      hit = hit || woop_test(wc.tri[k], qm, cap_m) < cap_m;
+    }
+    if (__any_sync(kFull, hit) && lane == m) occluded = true;
+  }
+  return occluded;
 }
 
 // The block sweeps clusters [c_begin, c_end) in index order: boxes staged

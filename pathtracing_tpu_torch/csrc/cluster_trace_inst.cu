@@ -23,21 +23,40 @@
 // What bounds it on this card: operations, as for the flat kernels. Each
 // pierced (ray, expanded cluster) pair costs the transform (30 float
 // operations static, about 130 with motion) beside 128 x 48 for the Woop
-// pass. The bytes are small: the prototype tables (7.7 KB per prototype
-// cluster) and 72 B per expanded cluster (168 B with motion) stay in L2.
+// pass, all float32 on the CUDA cores: the tensor cores stay out, since the
+// Woop tests must round as the plain version does and TF32 breaks
+// geometry. The bytes are small: the prototype tables (7.7 KB per
+// prototype cluster) and 72 B per expanded cluster (168 B with motion)
+// stay in L2.
 //
-// Design: the flat kernels' shape (cluster_trace.cu): one thread per ray,
-// blocks of 128, expanded boxes staged in shared memory 1024 at a time, a
-// warp skipping an expanded cluster no lane pierces. The transform, cmap
-// and imat rows are read from global memory only after the slab test
-// passes; every lane of the warp that needs them reads the same address,
-// so they are broadcast loads and shared memory holds only the boxes
-// (24 KB). The motion inverse is recomputed per pierced pair and once more
-// for the winner in the epilogue, from the same inputs in the same order,
-// so it gives the same bits both times and nothing is cached per ray. The
-// sweep is in index order with strict < across expanded clusters and the
-// smallest lane on a tie within one: the rule of trace_inst_torch, which
-// now decides the instance (transform, override) as well as the slot.
+// Design of the closest hit (trace_dnf_inst_kernel). The expanded clusters
+// of one placement (the base geometry, or one instance) are contiguous, so
+// InstanceSet carries a box per placement, the union of its expanded
+// boxes (inst_first, inst_min, inst_max). The sweep has two levels: the
+// block stages the placement boxes in shared memory (1024 at a time, 24
+// KB), a warp enters a placement only where one of its live lanes pierces
+// that box against the lane's best t, and then slab-tests the placement's
+// expanded boxes from global memory (broadcast loads). The culling is
+// exact: every expanded box lies inside its placement's box and the slab
+// test's rounding is monotone, so a pair that passes its own box passes
+// its placement's, and the kernel evaluates the same pairs in the same
+// (index) order as trace_inst_torch. Each pierced pair is evaluated by the
+// whole warp: every lane that pierces expanded cluster e takes the ray into
+// e's object space itself (load_xform, to_object), the warp loads the
+// prototype cluster's Woop rows once, coalesced, four triangles a lane,
+// and evaluates those lanes' rays one after another, broadcast with
+// __shfl_sync (warp_closest_group in cluster_common.cuh), keeping the
+// smallest triangle index on a tie as the serial scan does. Strict <
+// across expanded clusters decides the instance (transform, override) as
+// well as the slot. The motion inverse is recomputed per pierced pair and
+// once more for the winner in the epilogue, from the same inputs in the
+// same order, so it gives the same bits both times.
+//
+// Design of the any hit (occluded_dnf_inst_kernel): one thread per ray,
+// all expanded boxes staged in shared memory 1024 at a time (24 KB), a
+// warp skipping an expanded cluster no lane pierces, a lane that pierces
+// one testing its 128 triangles alone and retiring at its first hit.
+//
 // Formula order follows _ray_to_object and _lerp_affine_inverse of
 // ops/cluster_trace.py term by term, and the build uses --fmad=false, so
 // an identity instance passes a ray through bit for bit and t, slot, mat
@@ -135,14 +154,18 @@ trace_dnf_inst_kernel(const float* __restrict__ origin,
                       const int* __restrict__ imat,
                       const float* __restrict__ fw0,
                       const float* __restrict__ fw1,
+                      const int* __restrict__ inst_first,
+                      const float* __restrict__ inst_min,
+                      const float* __restrict__ inst_max,
                       const float* __restrict__ woop,
                       const float* __restrict__ normal,
-                      const int* __restrict__ mat, int n_rays, int n_exp,
+                      const int* __restrict__ mat, int n_rays, int n_inst,
                       float* __restrict__ t_out, int* __restrict__ slot_out,
                       float* __restrict__ normal_out,
                       int* __restrict__ mat_out) {
   __shared__ float box[6][kBoxChunk];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int warp_lane = threadIdx.x % kWarp;
   const bool in_range = i < n_rays;
   Ray r = {};
   float best = 0.0f;
@@ -157,27 +180,33 @@ trace_dnf_inst_kernel(const float* __restrict__ origin,
   int best_e = 0;
 
   if (__syncthreads_or(live)) {
-    for (int c0 = 0; c0 < n_exp; c0 += kBoxChunk) {
-      const int n = min(kBoxChunk, n_exp - c0);
+    for (int p0 = 0; p0 < n_inst; p0 += kBoxChunk) {
+      const int n = min(kBoxChunk, n_inst - p0);
       __syncthreads();
-      stage_boxes(box, aabb_min, aabb_max, c0, n);
+      stage_boxes(box, inst_min, inst_max, p0, n);
       __syncthreads();
       if (!__any_sync(kFull, live)) continue;
       for (int k = 0; k < n; ++k) {
-        const bool h = live && slab(box, k, r, best);
-        if (!__any_sync(kFull, h)) continue;
-        if (h) {
-          const int e = c0 + k;
-          float xf[12];
-          load_xform<kMotion>(xf, xform, fw0, fw1, e, tt);
-          const Ray q = to_object(xf, r);
+        const bool in = live && slab(box, k, r, best);
+        if (!__any_sync(kFull, in)) continue;
+        const int e_end = __ldg(inst_first + p0 + k + 1);
+        for (int e = __ldg(inst_first + p0 + k); e < e_end; ++e) {
+          const bool h =
+              in && slab_test(aabb_min + 3 * e, aabb_max + 3 * e, 1, r, best);
+          const unsigned group = __ballot_sync(kFull, h);
+          if (group == 0) continue;
+          Ray q = {};
+          if (h) {
+            float xf[12];
+            load_xform<kMotion>(xf, xform, fw0, fw1, e, tt);
+            q = to_object(xf, r);
+          }
           const int p = __ldg(cmap + e);
-          const float* w = woop + static_cast<size_t>(p) * 4 * kWoopCols;
-          int lane_min;
-          const float t_min = closest_in_cluster(w, q, best, lane_min);
-          if (t_min < best) {
-            best = t_min;
-            best_slot = p * kClusterSize + lane_min;
+          WarpCluster wc;
+          load_warp_cluster(wc, woop + static_cast<size_t>(p) * 4 * kWoopCols,
+                            warp_lane);
+          if (warp_closest_group(wc, group, q, p, warp_lane, best,
+                                 best_slot)) {
             best_e = e;
           }
         }
@@ -285,29 +314,32 @@ occluded_dnf_inst_kernel(const float* __restrict__ origin,
 extern "C" {
 
 // `time`, `fw0` and `fw1` are all null (static instances) or all given
-// (motion); `imat` may be null (no overrides).
+// (motion); `imat` may be null (no overrides). `inst_first` (n_inst + 1)
+// bounds each placement's run of expanded clusters, `inst_min` /
+// `inst_max` (n_inst, 3) its box.
 int ptpu_trace_dnf_inst(const float* origin, const float* direction,
                         const float* t_init, const float* time,
                         const float* aabb_min, const float* aabb_max,
                         const int* cmap, const float* xform, const int* imat,
                         const float* fw0, const float* fw1,
-                        const float* woop, const float* normal,
-                        const int* mat, int n_rays, int n_exp, float* t_out,
-                        int* slot_out, float* normal_out, int* mat_out,
-                        void* stream) {
+                        const int* inst_first, const float* inst_min,
+                        const float* inst_max, const float* woop,
+                        const float* normal, const int* mat, int n_rays,
+                        int n_inst, float* t_out, int* slot_out,
+                        float* normal_out, int* mat_out, void* stream) {
   if (n_rays <= 0) return 0;
   const int grid = (n_rays + kBlock - 1) / kBlock;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fw0 != nullptr) {
     trace_dnf_inst_kernel<true><<<grid, kBlock, 0, s>>>(
         origin, direction, t_init, time, aabb_min, aabb_max, cmap, xform,
-        imat, fw0, fw1, woop, normal, mat, n_rays, n_exp, t_out, slot_out,
-        normal_out, mat_out);
+        imat, fw0, fw1, inst_first, inst_min, inst_max, woop, normal, mat,
+        n_rays, n_inst, t_out, slot_out, normal_out, mat_out);
   } else {
     trace_dnf_inst_kernel<false><<<grid, kBlock, 0, s>>>(
         origin, direction, t_init, time, aabb_min, aabb_max, cmap, xform,
-        imat, fw0, fw1, woop, normal, mat, n_rays, n_exp, t_out, slot_out,
-        normal_out, mat_out);
+        imat, fw0, fw1, inst_first, inst_min, inst_max, woop, normal, mat,
+        n_rays, n_inst, t_out, slot_out, normal_out, mat_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -44,11 +44,6 @@ using namespace ptpu;
 
 namespace {
 
-__device__ __forceinline__ int octant(const Ray& r) {
-  return (r.d[0] > 0.0f ? 4 : 0) + (r.d[1] > 0.0f ? 2 : 0) +
-         (r.d[2] > 0.0f ? 1 : 0);
-}
-
 // Walk one threaded tree: node_box (6, N), node_meta (2, N) [skip, cluster
 // id or -1], links (16, N) [hit links of octants 0..7, then miss links].
 // Leaf ids are offset by cid_base. Closest hit: updates best and

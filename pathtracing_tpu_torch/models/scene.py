@@ -15,7 +15,7 @@ the triangles to ``ops.cluster_trace``: the CUDA kernels for
 ``traversal="cluster_cuda"`` and their plain torch versions for
 ``"cluster_torch"``. Under either name, as in the JAX package: a scene
 with ``instances`` goes to the instanced pair, a paged scene (``pages``)
-to the paged sweep for both queries, a flat scene of at most
+to the paged pair (closest hit and any hit), a flat scene of at most
 ``DNF_MAX_CLUSTERS`` clusters to the flat pair, and a larger unpaged one
 to the cluster-tree walk. ``scene_from_numpy`` takes the JAX package's
 Scene fields as numpy arrays, so one scene can feed both packages.
@@ -151,6 +151,8 @@ def scene_from_numpy(arrays, device) -> Scene:
     instances = None
     if arrays.get("instances") is not None:
         it = _fields(arrays["instances"])
+        first, lo, hi = cluster_ops.placement_boxes(
+            it["inst_id"], it["aabb_min"], it["aabb_max"])
         instances = cluster_ops.InstanceSet(
             cmap=dev(it["cmap"], torch.int32),
             xform=dev(it["xform"], torch.float32),
@@ -160,6 +162,9 @@ def scene_from_numpy(arrays, device) -> Scene:
             imat=opt(it, "imat", torch.int32),
             fw0=opt(it, "fw0", torch.float32),
             fw1=opt(it, "fw1", torch.float32),
+            inst_first=dev(first, torch.int32),
+            inst_min=dev(lo, torch.float32),
+            inst_max=dev(hi, torch.float32),
         )
     pages = None
     if arrays.get("pages") is not None:
@@ -545,18 +550,6 @@ def _sphere_pass(scene: Scene, origin, direction):
     )
 
 
-def _paged_occluded_torch(clusters, pages, origin, direction, t_max):
-    return cluster_trace.trace_paged_dnf_torch(
-        clusters, pages, origin, direction, t_max)[1] >= 0
-
-
-def _paged_occluded(clusters, pages, origin, direction, t_max):
-    # Paged occlusion reuses the closest-hit page sweep, as in the JAX
-    # package (a paged any-hit kernel would only save the epilogue).
-    return cluster_trace.trace_paged_dnf(
-        clusters, pages, origin, direction, t_max)[1] >= 0
-
-
 _ROUTES = {
     # (query, route): (plain version, dispatching kernel wrapper)
     ("trace", "flat"): (cluster_trace.trace_torch, cluster_trace.trace),
@@ -566,9 +559,13 @@ _ROUTES = {
                              cluster_trace.trace_inst),
     ("occluded", "instanced"): (cluster_trace.occluded_inst_torch,
                                 cluster_trace.occluded_inst),
-    ("trace", "paged"): (cluster_trace.trace_paged_dnf_torch,
+    ("trace", "paged"): (cluster_trace.trace_paged_walk_torch,
                          cluster_trace.trace_paged_dnf),
-    ("occluded", "paged"): (_paged_occluded_torch, _paged_occluded),
+    # The JAX package answers paged occlusion with its closest-hit page
+    # sweep (the TPU's tile sweep gains nothing from stopping a lane early);
+    # the port's paged walk retires a lane at its first occluder.
+    ("occluded", "paged"): (cluster_trace.occluded_paged_dnf_torch,
+                            cluster_trace.occluded_paged_dnf),
     ("trace", "tree"): (cluster_trace.trace_tree_torch,
                         cluster_trace.trace_tree),
     ("occluded", "tree"): (cluster_trace.occluded_tree_torch,

@@ -37,21 +37,27 @@ Scenes past ``DNF_MAX_CLUSTERS`` (``ops.clusters`` trees and pages) go
 through
 
   trace_paged_dnf(clusters, pages, origin, direction, t_init)
+  occluded_paged_dnf(clusters, pages, origin, direction, t_max)
   trace_tree(clusters, origin, direction, t_init)
   occluded_tree(clusters, origin, direction, t_max)
   trace_tree_paged(clusters, pages, origin, direction, t_init)
 
 with the same contract, ``slot`` in the page-ordered cluster numbering of
-a paged set. ``trace_paged_dnf`` sweeps the pages in order, each page's
-real clusters in index order (plain version ``trace_paged_dnf_torch``,
-equal to ``trace_torch`` over the padded set; kernel in
-``csrc/cluster_trace_paged.cu``); paged occlusion is its ``slot >= 0``.
-The other three walk the threaded cluster tree per ray, each ray along
-its own direction octant's links (plain versions ``trace_tree_torch``,
-``occluded_tree_torch``, ``trace_tree_paged_torch``, a vectorised walk in
-which all live rays step together; kernels in
-``csrc/cluster_trace_tree.cu``); their normal is the winner's Woop w-row
-normalised, as in the JAX tree kernels.
+a paged set. All five walk threaded cluster trees per ray, each ray along
+its own direction octant's links (plain versions: vectorised walks in
+which all live rays step together). ``trace_paged_dnf`` and
+``occluded_paged_dnf`` walk each page's tree, a ray's pages nearest
+first (plain versions ``trace_paged_walk_torch``, whose normal and
+material come from the cluster tables, and ``occluded_paged_dnf_torch``;
+kernels in ``csrc/cluster_trace_paged.cu``). ``trace_paged_dnf_torch``
+is the JAX package's order: pages in index order, each page's real
+clusters in index order, equal to ``trace_torch`` over the padded set;
+the walk gives its t bit for bit and its slot or a tied t. The other
+three walk the whole tree (``trace_tree_torch``,
+``occluded_tree_torch``) or each page's tree in page order
+(``trace_tree_paged_torch``; kernels in ``csrc/cluster_trace_tree.cu``);
+their normal is the winner's Woop w-row normalised, as in the JAX tree
+kernels.
 """
 
 from __future__ import annotations
@@ -72,8 +78,9 @@ DNF_MAX_CLUSTERS = 8192
 # Launch counts of the CUDA kernels (a run resets them to 0 before the
 # path it wants to account for and reads them after).
 LAUNCHES = {"trace": 0, "occluded": 0, "trace_inst": 0,
-            "occluded_inst": 0, "trace_paged_dnf": 0, "trace_tree": 0,
-            "occluded_tree": 0, "trace_tree_paged": 0}
+            "occluded_inst": 0, "trace_paged_dnf": 0,
+            "occluded_paged_dnf": 0, "trace_tree": 0, "occluded_tree": 0,
+            "trace_tree_paged": 0}
 
 
 def reset_launches() -> None:
@@ -305,37 +312,45 @@ def _octant(direction):
 
 
 def _walk_torch(tree, woop, origin, direction, inv_d, octant, best_t,
-                best_slot, cid_base, counts, occ=None):
-    """Per-ray walk of one threaded tree ``tree`` = (node_box (6, N),
-    node_meta (2, N), links (16, N)), all live rays stepping together:
-    gather each ray's node box, slab-test it against the ray's best t,
-    evaluate the rays that stand on a pierced leaf against its cluster
-    (leaf ids offset by ``cid_base``), and move each ray to
-    ``links[oct]`` (hit) or ``links[8 + oct]`` (miss) of its own octant
-    until it passes the last node. Closest hit: in place on ``best_t`` /
-    ``best_slot``. Any hit (``occ`` given): ``best_t`` is the fixed cap,
-    and a ray is retired at its first hit (``occ`` set in place)."""
+                best_slot, counts, page=None, page_size=0, want=None,
+                occ=None):
+    """Per-ray walk of threaded trees ``tree`` = (node_box (G, 6, N),
+    node_meta (G, 2, N), links (G, 16, N)), all walking rays stepping
+    together: each live ray (and, given ``want``, only those rays) walks
+    tree ``page[ray]`` (default 0), gathers each node's box, slab-tests it
+    against the ray's best t, evaluates the rays that stand on a pierced
+    leaf against its cluster (page-local leaf id + page * ``page_size``),
+    and moves to ``links[oct]`` (hit) or ``links[8 + oct]`` (miss) of its
+    own octant until it passes the last node. Closest hit: in place on
+    ``best_t`` / ``best_slot``. Any hit (``occ`` given): ``best_t`` is the
+    fixed cap, and a ray is retired at its first hit (``occ`` set in
+    place)."""
     node_box, node_meta, links = tree
-    n_nodes = node_box.shape[1]
+    n_nodes = node_box.shape[2]
     live = best_t > 0.0
+    if want is not None:
+        live = live & want
     if occ is not None:
         live = live & ~occ
+    if page is None:
+        page = torch.zeros_like(live, dtype=torch.int64)
     node = torch.where(live, 0, n_nodes).long()
     while True:
         idx = torch.nonzero(node < n_nodes).squeeze(1)
         if idx.numel() == 0:
             break
-        nd = node[idx]
-        box = node_box[:, nd]
+        nd, pg = node[idx], page[idx]
+        box = node_box[pg, :, nd].T                          # (6, n)
         bt = best_t[idx]
         hit = _slab(origin[idx], inv_d[idx], box[:3], box[3:], bt)
-        leaf = hit & (node_meta[1, nd] >= 0)
+        cid = node_meta[pg, 1, nd]
+        leaf = hit & (cid >= 0)
         li = idx[leaf]
         counts.add(idx.numel(), li)
         oc = octant[idx]
-        nxt = torch.where(hit, links[oc, nd], links[8 + oc, nd]).long()
+        nxt = torch.where(hit, links[pg, oc, nd], links[pg, 8 + oc, nd]).long()
         if li.numel():
-            c = node_meta[1, nd[leaf]].long() + cid_base
+            c = cid[leaf].long() + pg[leaf] * page_size
             t_pair = _pair_eval(origin[li], direction[li], woop[c],
                                 bt[leaf][:, None])
             if occ is None:
@@ -351,8 +366,8 @@ def _tree(clusters):
     if clusters.node_box is None:
         raise ValueError("this ClusterSet carries no cluster tree")
     n = clusters.node_box.shape[1]
-    return (clusters.node_box, clusters.node_meta,
-            clusters.oct_links.reshape(16, n))
+    return (clusters.node_box[None], clusters.node_meta[None],
+            clusters.oct_links.reshape(1, 16, n))
 
 
 def _woop_normal_hit(clusters, best_t, best_slot):
@@ -380,7 +395,7 @@ def trace_tree_torch(clusters, origin, direction, t_init, stats=None):
     counts = _Counts(stats)
     _walk_torch(_tree(clusters), clusters.woop, origin, direction,
                 _safe_inv(direction), _octant(direction), best_t, best_slot,
-                0, counts)
+                counts)
     counts.record()
     return _woop_normal_hit(clusters, best_t, best_slot)
 
@@ -393,8 +408,8 @@ def occluded_tree_torch(clusters, origin, direction, t_max, stats=None):
     occ = torch.zeros(origin.shape[0], dtype=torch.bool, device=origin.device)
     counts = _Counts(stats)
     _walk_torch(_tree(clusters), clusters.woop, origin, direction,
-                _safe_inv(direction), _octant(direction), cap, None, 0,
-                counts, occ=occ)
+                _safe_inv(direction), _octant(direction), cap, None, counts,
+                occ=occ)
     counts.record()
     return occ
 
@@ -409,12 +424,70 @@ def trace_tree_paged_torch(clusters, pages, origin, direction, t_init,
     best_t, best_slot = _start(origin, t_init)
     inv_d, octant = _safe_inv(direction), _octant(direction)
     counts = _Counts(stats)
+    tree = (pages.node_box, pages.node_meta, pages.oct_links)
     for g in range(n_pages):
-        tree = (pages.node_box[g], pages.node_meta[g], pages.oct_links[g])
         _walk_torch(tree, clusters.woop, origin, direction, inv_d, octant,
-                    best_t, best_slot, g * page_size, counts)
+                    best_t, best_slot, counts,
+                    page=torch.full_like(octant, g), page_size=page_size)
     counts.record()
     return _woop_normal_hit(clusters, best_t, best_slot)
+
+
+def _page_entry(pages, origin, inv_d):
+    """(R, G) entry distance of each ray into each page's root box (column
+    0 of its tree), ``_BIG`` where the ray misses the box: the kernel's
+    ``page_entry``, in ``_slab``'s arithmetic, so entry < best t exactly
+    where ``_slab`` passes."""
+    root = pages.node_box[:, :, 0]                           # (G, 6)
+    shape = (origin.shape[0], root.shape[0])
+    tn = torch.full(shape, -_BIG, dtype=torch.float32, device=origin.device)
+    tf = torch.full(shape, _BIG, dtype=torch.float32, device=origin.device)
+    for ax in range(3):
+        o = origin[:, ax:ax + 1]
+        iv = inv_d[:, ax:ax + 1]
+        t0 = (root[:, ax] - o) * iv
+        t1 = (root[:, 3 + ax] - o) * iv
+        tn = torch.maximum(tn, torch.minimum(t0, t1))
+        tf = torch.minimum(tf, torch.maximum(t0, t1))
+    return torch.where((tn <= tf) & (tf > T_MIN), tn, _BIG)
+
+
+def trace_paged_walk_torch(clusters, pages, origin, direction, t_init,
+                           stats=None):
+    """Plain paged closest hit in the kernel's order: each ray walks its
+    pages nearest first (by the entry distance into each page's root box,
+    ties by page index) and stops at the first page it enters no earlier
+    than its best t; each page's tree is walked as in
+    ``trace_tree_paged_torch``, and the normal and material come from the
+    cluster tables. Leaves are real clusters only, so padding clusters are
+    never evaluated. Against ``trace_paged_dnf_torch`` (index order): t bit
+    for bit, slot equal or t tied. ``stats`` as in ``trace_tree_torch``."""
+    n_pages, page_size, _ = page_shape(clusters, pages)
+    best_t, best_slot = _start(origin, t_init)
+    inv_d, octant = _safe_inv(direction), _octant(direction)
+    entry, order = torch.sort(_page_entry(pages, origin, inv_d), dim=1,
+                              stable=True)
+    tree = (pages.node_box, pages.node_meta, pages.oct_links)
+    counts = _Counts(stats)
+    for k in range(n_pages):
+        want = (best_t > 0.0) & (entry[:, k] < best_t)
+        if not bool(want.any()):
+            break        # later pages start further: no ray enters them
+        _walk_torch(tree, clusters.woop, origin, direction, inv_d, octant,
+                    best_t, best_slot, counts, page=order[:, k],
+                    page_size=page_size, want=want)
+    counts.record()
+    return _table_hit(clusters, best_t, best_slot)
+
+
+def occluded_paged_dnf_torch(clusters, pages, origin, direction, t_max,
+                             stats=None):
+    """Plain paged any hit: ``trace_paged_dnf_torch(..., t_max)[1] >= 0``,
+    the JAX package's paged occlusion. The kernel visits the clusters in
+    another order and stops early, but whether some triangle lies inside
+    (T_MIN, t_max) does not depend on that. ``stats`` as there."""
+    return trace_paged_dnf_torch(clusters, pages, origin, direction, t_max,
+                                 stats=stats)[1] >= 0
 
 
 # --- instanced plain torch versions --------------------------------------
@@ -623,9 +696,9 @@ _SIGNATURES = {
 
 _INST_SIGNATURES = {
     # origin, direction, t_init, time, aabb_min, aabb_max, cmap, xform,
-    # imat, fw0, fw1, woop, normal, mat, n_rays, n_exp, t_out, slot_out,
-    # normal_out, mat_out, stream
-    "ptpu_trace_dnf_inst": [_P] * 14 + [_I, _I] + [_P] * 5,
+    # imat, fw0, fw1, inst_first, inst_min, inst_max, woop, normal, mat,
+    # n_rays, n_inst, t_out, slot_out, normal_out, mat_out, stream
+    "ptpu_trace_dnf_inst": [_P] * 17 + [_I, _I] + [_P] * 5,
     # origin, direction, t_max, time, aabb_min, aabb_max, cmap, xform, fw0,
     # fw1, woop, n_rays, n_exp, occ_out, stream
     "ptpu_occluded_dnf_inst": [_P] * 11 + [_I, _I] + [_P] * 2,
@@ -633,10 +706,13 @@ _INST_SIGNATURES = {
 
 
 _PAGED_SIGNATURES = {
-    # origin, direction, t_init, aabb_min, aabb_max, woop, normal, mat,
-    # page_tree_box, n_real, n_rays, n_pages, page_size, page_nodes, t_out,
-    # slot_out, normal_out, mat_out, stream
-    "ptpu_trace_paged_dnf": [_P] * 10 + [_I] * 4 + [_P] * 5,
+    # origin, direction, t_init, woop, normal, mat, node_box, node_meta,
+    # oct_links, n_rays, n_pages, page_size, page_nodes, t_out, slot_out,
+    # normal_out, mat_out, stream
+    "ptpu_trace_paged_dnf": [_P] * 9 + [_I] * 4 + [_P] * 5,
+    # origin, direction, t_max, woop, node_box, node_meta, oct_links,
+    # n_rays, n_pages, page_size, page_nodes, occ_out, stream
+    "ptpu_occluded_paged_dnf": [_P] * 7 + [_I] * 4 + [_P] * 2,
 }
 _TREE_SIGNATURES = {
     # origin, direction, t_init, node_box, node_meta, links, woop, mat,
@@ -788,10 +864,28 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _placement_args(inst, device):
+    """Checked (n_inst, (inst_first, inst_min, inst_max)) of an instance
+    set: the placement runs and boxes of the closest-hit kernel."""
+    if inst.inst_first is None:
+        raise ValueError("this InstanceSet carries no placement boxes "
+                         "(ops.clusters.placement_boxes)")
+    p = inst.inst_first.shape[0] - 1
+    tables = (
+        _checked(inst.inst_first, torch.int32, (p + 1,), "inst.inst_first"),
+        _checked(inst.inst_min, torch.float32, (p, 3), "inst.inst_min"),
+        _checked(inst.inst_max, torch.float32, (p, 3), "inst.inst_max"),
+    )
+    _same_device(tables, device)
+    return p, tables
+
+
 def trace_inst(clusters, inst, origin, direction, t_init, time=None):
     """Instanced closest hit (see the module contract). An empty instance
     set passes ``t_init`` through without a sweep. CPU tensors take
-    ``trace_inst_torch``; CUDA tensors launch ``trace_dnf_inst_kernel``."""
+    ``trace_inst_torch``; CUDA tensors launch ``trace_dnf_inst_kernel``,
+    which culls whole placements by ``inst.inst_min``/``inst_max`` first
+    (exact: the same pairs in the same order as ``trace_inst_torch``)."""
     dev = origin.device
     if inst.cmap.shape[0] == 0:
         return _no_hit(t_init)
@@ -799,8 +893,9 @@ def trace_inst(clusters, inst, origin, direction, t_init, time=None):
         return trace_inst_torch(clusters, inst, origin, direction, t_init,
                                 time=time)
     r, rays = _ray_args(origin, direction, t_init, "t_init")
-    ce, tt, tables, imat, motion, woop = _inst_args(clusters, inst, r, time,
-                                                    dev, with_imat=True)
+    _, tt, tables, imat, motion, woop = _inst_args(clusters, inst, r, time,
+                                                   dev, with_imat=True)
+    n_inst, places = _placement_args(inst, dev)
     c = woop.shape[0]
     normal_tab = _checked(clusters.normal, torch.float32,
                           (c, 3, CLUSTER_SIZE), "normal")
@@ -817,9 +912,9 @@ def trace_inst(clusters, inst, origin, direction, t_init, time=None):
     err = lib.ptpu_trace_dnf_inst(
         *(x.data_ptr() for x in rays), _ptr(tt),
         *(x.data_ptr() for x in tables), _ptr(imat), _ptr(motion[0]),
-        _ptr(motion[1]), woop.data_ptr(), normal_tab.data_ptr(),
-        mat_tab.data_ptr(), r, ce, t.data_ptr(), slot.data_ptr(),
-        normal.data_ptr(), mat.data_ptr(), stream,
+        _ptr(motion[1]), *(x.data_ptr() for x in places), woop.data_ptr(),
+        normal_tab.data_ptr(), mat_tab.data_ptr(), r, n_inst, t.data_ptr(),
+        slot.data_ptr(), normal.data_ptr(), mat.data_ptr(), stream,
     )
     _raise_on(err, "trace_dnf_inst_kernel")
     LAUNCHES["trace_inst"] += 1
@@ -906,33 +1001,51 @@ def _hit_tables(clusters, device):
 
 def trace_paged_dnf(clusters, pages, origin, direction, t_init):
     """Paged closest hit (see the module contract). CPU tensors take
-    ``trace_paged_dnf_torch``; CUDA tensors launch
+    ``trace_paged_walk_torch``; CUDA tensors launch
     ``trace_paged_dnf_kernel``."""
     dev = origin.device
     if dev.type == "cpu":
-        return trace_paged_dnf_torch(clusters, pages, origin, direction,
-                                     t_init)
+        return trace_paged_walk_torch(clusters, pages, origin, direction,
+                                      t_init)
     r, rays = _ray_args(origin, direction, t_init, "t_init")
-    c, (bmin, bmax, woop) = _cluster_args(clusters, dev)
-    _, normal_tab, mat_tab = _hit_tables(clusters, dev)
-    g, page_size, page_nodes, node_box, _, _ = _page_args(clusters, pages,
-                                                          dev)
-    n_real = _checked(pages.n_real, torch.int32, (g,), "pages.n_real")
-    _same_device((n_real,), dev)
+    g, page_size, page_nodes, *tree = _page_args(clusters, pages, dev)
+    tables = _hit_tables(clusters, dev)
     out = _closest_out(r, dev)
     if r == 0:
         return out
-    lib = _paged_library()
-    err = lib.ptpu_trace_paged_dnf(
-        *(x.data_ptr() for x in rays), bmin.data_ptr(), bmax.data_ptr(),
-        woop.data_ptr(), normal_tab.data_ptr(), mat_tab.data_ptr(),
-        node_box.data_ptr(), n_real.data_ptr(), r, g, page_size, page_nodes,
+    err = _paged_library().ptpu_trace_paged_dnf(
+        *(x.data_ptr() for x in rays), *(x.data_ptr() for x in tables),
+        *(x.data_ptr() for x in tree), r, g, page_size, page_nodes,
         *(x.data_ptr() for x in out),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "trace_paged_dnf_kernel")
     LAUNCHES["trace_paged_dnf"] += 1
     return out
+
+
+def occluded_paged_dnf(clusters, pages, origin, direction, t_max):
+    """Paged any-hit occlusion (see the module contract). CPU tensors take
+    ``occluded_paged_dnf_torch``; CUDA tensors launch
+    ``occluded_paged_dnf_kernel``."""
+    dev = origin.device
+    if dev.type == "cpu":
+        return occluded_paged_dnf_torch(clusters, pages, origin, direction,
+                                        t_max)
+    r, rays = _ray_args(origin, direction, t_max, "t_max")
+    g, page_size, page_nodes, *tree = _page_args(clusters, pages, dev)
+    woop = _hit_tables(clusters, dev)[0]
+    occ = torch.empty(r, dtype=torch.bool, device=dev)
+    if r == 0:
+        return occ
+    err = _paged_library().ptpu_occluded_paged_dnf(
+        *(x.data_ptr() for x in rays), woop.data_ptr(),
+        *(x.data_ptr() for x in tree), r, g, page_size, page_nodes,
+        occ.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "occluded_paged_dnf_kernel")
+    LAUNCHES["occluded_paged_dnf"] += 1
+    return occ
 
 
 def _tree_args(clusters, device):

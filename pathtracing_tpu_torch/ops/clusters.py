@@ -469,6 +469,13 @@ class InstanceSet(NamedTuple):
               point then travels a straight world-space segment, so the
               endpoint-corner union AABB is an exact bound) and inverts
               per ray at eval time; static rows simply carry fw0 == fw1.
+    inst_first: (P+1,) i32 placement runs: placement p (the base geometry,
+              or one instance) owns expanded clusters [inst_first[p],
+              inst_first[p+1]), in index order.
+    inst_min/inst_max: (P, 3) f32 each placement's box, the union of its
+              expanded boxes; the closest-hit kernel culls whole
+              placements with it. The port's own fields
+              (``placement_boxes``), counted once when the set is built.
     """
 
     cmap: np.ndarray
@@ -479,6 +486,26 @@ class InstanceSet(NamedTuple):
     imat: np.ndarray = None
     fw0: np.ndarray = None
     fw1: np.ndarray = None
+    inst_first: np.ndarray = None
+    inst_min: np.ndarray = None
+    inst_max: np.ndarray = None
+
+
+def placement_boxes(inst_id: np.ndarray, aabb_min: np.ndarray,
+                    aabb_max: np.ndarray):
+    """(inst_first (P+1,) i32, inst_min (P, 3) f32, inst_max (P, 3) f32) of
+    an instance set: the maximal runs of equal ``inst_id`` (one per
+    placement, as ``expand_instances`` emits them) and the union of each
+    run's expanded boxes."""
+    inst_id = np.asarray(inst_id)
+    starts = np.flatnonzero(np.diff(inst_id) != 0) + 1
+    first = np.concatenate([[0], starts, [inst_id.shape[0]]]).astype(np.int32)
+    if inst_id.shape[0] == 0:
+        empty = np.zeros((0, 3), np.float32)
+        return first[:1], empty, empty.copy()
+    lo = np.minimum.reduceat(np.asarray(aabb_min, np.float32), first[:-1])
+    hi = np.maximum.reduceat(np.asarray(aabb_max, np.float32), first[:-1])
+    return first, lo, hi
 
 
 def expand_instances(proto: ClusterSet, placements) -> InstanceSet:
@@ -563,13 +590,18 @@ def expand_instances(proto: ClusterSet, placements) -> InstanceSet:
         maxs.append((wmax + margin).astype(np.float32))
         iids.append(np.full(count, iid, np.int32))
     imat_all = np.concatenate(imats)
+    aabb_min, aabb_max = np.concatenate(mins), np.concatenate(maxs)
+    inst_id = np.concatenate(iids)
+    inst_first, inst_min, inst_max = placement_boxes(inst_id, aabb_min,
+                                                     aabb_max)
     return InstanceSet(
         cmap=np.concatenate(cmaps),
         xform=np.concatenate(xforms),
-        aabb_min=np.concatenate(mins),
-        aabb_max=np.concatenate(maxs),
-        inst_id=np.concatenate(iids),
+        aabb_min=aabb_min,
+        aabb_max=aabb_max,
+        inst_id=inst_id,
         imat=imat_all if (imat_all >= 0).any() else None,
         fw0=np.concatenate(fw0s) if any_motion else None,
         fw1=np.concatenate(fw1s) if any_motion else None,
+        inst_first=inst_first, inst_min=inst_min, inst_max=inst_max,
     )

@@ -8,7 +8,9 @@ source, the shared headers and the flags, so an edited source rebuilds and
 an unchanged one loads at once. ``build_all`` starts one ``nvcc`` per
 source, all together. ``--fmad=false`` keeps the kernels' float rounding
 equal to the plain torch versions' (no contracted multiply-adds), so the
-card-side check against them can be tight.
+card-side check against them can be tight. ``ptxas -v`` reports each
+kernel's registers, stack and spills; the compiler's output is kept
+beside the library (``build_log``).
 
 ``csrc/<name>.cpp`` sources are host code (the SAH BVH builder): the host
 C++ compiler (``$CXX``, else ``g++``) builds each into the same directory,
@@ -32,12 +34,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, ".build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
+              "-fPIC")
 # No contracted multiply-adds and no host-specific instructions
 # (-march=native), so the host library rounds as the NumPy reference does.
 HOST_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
 
 _LOADED = {}
+_COMPILED = set()   # libraries this process compiled (the others were cached)
 
 
 def nvcc_path() -> str:
@@ -91,7 +95,8 @@ def build_all(names=None):
 def _compile(jobs) -> None:
     """Run each (compiler command, source, library) of ``jobs`` whose
     library is missing, all processes started together; each writes a
-    temporary name that is renamed once it is complete."""
+    temporary name that is renamed once it is complete, and the
+    compiler's output beside it (``<library>.log``)."""
     procs = []
     for cmd, src, out in jobs:
         if os.path.exists(out):
@@ -108,7 +113,11 @@ def _compile(jobs) -> None:
             failed.append(f"{proc.args[0]} failed for "
                           f"{os.path.relpath(src, _PKG)}:\n{log}")
         else:
+            with open(f"{tmp}.log", "w") as f:
+                f.write(log)
+            os.replace(f"{tmp}.log", f"{out}.log")
             os.replace(tmp, out)
+            _COMPILED.add(out)
     if failed:
         raise RuntimeError("\n".join(failed))
 
@@ -136,6 +145,20 @@ def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its library exists; returns the
     library's path."""
     return build_all([name])[name]
+
+
+def build_log(name: str) -> str:
+    """What the compiler printed when it built ``csrc/<name>.cu`` (with
+    ``ptxas -v``: each kernel's registers, stack and spills)."""
+    with open(_library_path(name) + ".log") as f:
+        return f.read()
+
+
+def compiled_here(name: str) -> bool:
+    """Whether this process compiled ``csrc/<name>.cu`` (False: its
+    library and ``build_log`` come from an earlier build of the same
+    source and flags)."""
+    return _library_path(name) in _COMPILED
 
 
 def load(name: str, signatures, host: bool = False) -> ctypes.CDLL:

@@ -108,14 +108,28 @@ def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+# The port's own InstanceSet fields: each placement's run and box.
+PLACEMENT_FIELDS = ("inst_first", "inst_min", "inst_max")
+
+
 def _to_torch(tup):
     """A numpy ClusterSet / InstanceSet of the JAX package as the port's
     NamedTuple of CPU tensors (by field name: the JAX ClusterSet also
-    carries the tree fields only the TPU kernels read)."""
-    cls = tcl.InstanceSet if hasattr(tup, "cmap") else tcl.ClusterSet
-    return cls(**{f: None if getattr(tup, f) is None
-                  else torch.as_tensor(np.asarray(getattr(tup, f)))
-                  for f in cls._fields})
+    carries the tree fields only the TPU kernels read; the port's
+    InstanceSet adds the placement fields, computed here as
+    ``scene_from_numpy`` computes them)."""
+    if hasattr(tup, "cmap"):
+        cls, own = tcl.InstanceSet, dict(zip(PLACEMENT_FIELDS,
+                                             tcl.placement_boxes(
+                                                 np.asarray(tup.inst_id),
+                                                 np.asarray(tup.aabb_min),
+                                                 np.asarray(tup.aabb_max))))
+    else:
+        cls, own = tcl.ClusterSet, {}
+    fields = {f: own[f] if f in own else getattr(tup, f)
+              for f in cls._fields}
+    return cls(**{f: None if x is None else torch.as_tensor(np.asarray(x))
+                  for f, x in fields.items()})
 
 
 def _to_jax(tup):
@@ -132,7 +146,12 @@ def field():
 
 
 def _assert_tables_equal(a, b):
-    assert type(a)._fields == type(b)._fields
+    """Every field of ``a`` byte equal in ``b``. ``b`` has ``a``'s fields;
+    the port's InstanceSet against the JAX package's adds the placement
+    fields (checked by the placement tests below)."""
+    extra = (PLACEMENT_FIELDS if type(b) is tcl.InstanceSet
+             and type(a) is not tcl.InstanceSet else ())
+    assert type(b)._fields == type(a)._fields + extra
     for f in type(a)._fields:
         x, y = getattr(a, f), getattr(b, f)
         if x is None or y is None:
@@ -188,6 +207,89 @@ def _times(variant, mode, n):
 RTOL = {"static": 1e-6, "imat": 1e-6, "motion": 1e-5}
 CASES = [("static", "none"), ("imat", "none"), ("motion", "random"),
          ("motion", "none")]
+
+
+def _port_set(field, variant):
+    """The port's InstanceSet of ``field[variant]``, from its own
+    ``expand_instances``, as CPU tensors."""
+    cl, _ = field[variant]
+    port = tcl.expand_instances(
+        tcl.ClusterSet(**{f: getattr(cl, f) for f in tcl.ClusterSet._fields}),
+        _placements(cl.aabb_min.shape[0], 5, variant))
+    return tcl.InstanceSet(*(None if x is None else torch.as_tensor(x)
+                             for x in port))
+
+
+@pytest.mark.parametrize("variant", ["static", "imat", "motion"])
+def test_placement_boxes_hold_their_expanded_boxes(field, variant):
+    """Placement p's run [inst_first[p], inst_first[p+1]) is one instance
+    (constant ``inst_id``, a new one each run), the runs cover every
+    expanded cluster once in index order, and p's box is the union of the
+    run's boxes, so each expanded box lies inside it."""
+    inst = _port_set(field, variant)
+    first = inst.inst_first.tolist()
+    ce = inst.cmap.shape[0]
+    assert first[0] == 0 and first[-1] == ce
+    assert all(a < b for a, b in zip(first, first[1:]))
+    assert inst.inst_first.dtype == torch.int32
+    assert len(first) - 1 == 5 == int(torch.unique(inst.inst_id).numel())
+    run = torch.repeat_interleave(torch.arange(len(first) - 1),
+                                  torch.diff(inst.inst_first).long())
+    assert torch.equal(run.to(torch.int32), inst.inst_id)
+    assert bool((inst.aabb_min >= inst.inst_min[run]).all())
+    assert bool((inst.aabb_max <= inst.inst_max[run]).all())
+    for p in range(len(first) - 1):
+        lo, hi = first[p], first[p + 1]
+        assert torch.equal(inst.inst_min[p], inst.aabb_min[lo:hi].amin(0))
+        assert torch.equal(inst.inst_max[p], inst.aabb_max[lo:hi].amax(0))
+
+
+def _two_level_evals(cl, inst, o, d, t0, tm):
+    """The instanced closest-hit kernel's sweep in plain torch: a ray
+    enters a placement only where it pierces the placement's box against
+    its best t, then sweeps the placement's expanded boxes in index order.
+    Returns (pairs evaluated, best t)."""
+    best = t0.clone()
+    inv_d = tct._safe_inv(d)
+    tt = tct._shutter_time(inst, tm, o.shape[0], o.device)
+    first = inst.inst_first.tolist()
+    n_eval = 0
+    for p in range(len(first) - 1):
+        inside = (best > 0.0) & tct._slab(o, inv_d, inst.inst_min[p],
+                                          inst.inst_max[p], best)
+        for e in range(first[p], first[p + 1]):
+            hit = inside & tct._slab(o, inv_d, inst.aabb_min[e],
+                                     inst.aabb_max[e], best)
+            idx = torch.nonzero(hit).squeeze(1)
+            n_eval += idx.numel()
+            if idx.numel() == 0:
+                continue
+            o_e, d_e = tct._object_rays(inst, e, o[idx], d[idx],
+                                        None if tt is None else tt[idx])
+            bt = best[idx]
+            t_pair = tct._pair_eval(o_e, d_e, cl.woop[int(inst.cmap[e])],
+                                    bt[:, None])
+            t_min = torch.min(t_pair, dim=1).values
+            best[idx] = torch.where(t_min < bt, t_min, bt)
+    return n_eval, best
+
+
+@pytest.mark.parametrize("variant,tmode", CASES)
+def test_placement_culling_evaluates_the_same_pairs(field, variant, tmode):
+    """The two-level sweep evaluates exactly ``trace_inst_torch``'s pairs
+    (its ``cluster_evals``) and finds its t bit for bit: the culling by
+    placement boxes is exact."""
+    cl = _to_torch(field[variant][0])
+    inst = _port_set(field, variant)
+    o, d = (torch.as_tensor(a) for a in _rays(301))
+    t0 = torch.as_tensor(_t0(301))
+    tm = _times(variant, tmode, 301)
+    tm = None if tm is None else torch.as_tensor(tm)
+    stats = {}
+    ref = tct.trace_inst_torch(cl, inst, o, d, t0, time=tm, stats=stats)
+    n_eval, best = _two_level_evals(cl, inst, o, d, t0, tm)
+    assert n_eval == stats["cluster_evals"] > 0
+    assert torch.equal(best, ref[0])
 
 
 @pytest.mark.parametrize("variant,tmode", CASES)

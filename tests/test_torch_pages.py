@@ -15,8 +15,11 @@ Tolerances and why:
     thin triangles amplify that ulp to ~4e-6 in t), slot equal or t tied,
     normals within 1e-4 and materials equal where the slots agree;
     occlusion equal;
-  * inside the port (paged sweep ≡ flat sweep over the padded set):
-    bitwise;
+  * inside the port (paged sweep ≡ flat sweep over the padded set; the
+    paged any hit ≡ the capped paged sweep's ``slot >= 0``): bitwise; the
+    paged walk (the kernel's order) against the index-order sweep: t
+    bitwise, slot equal or t tied, normal and material equal where the
+    slots agree;
   * the 24x24 render: ≤ 1% of pixels over 1e-3, means within 1% (the
     render tolerance of tests/test_torch_render.py).
 """
@@ -31,6 +34,7 @@ from pathtracing_tpu.models import progressive as jprog
 from pathtracing_tpu.models import scene as jscene_mod
 from pathtracing_tpu.models import scenes as jscenes
 from pathtracing_tpu.ops import bvh_native
+from pathtracing_tpu.ops import cluster_trace as jct
 from pathtracing_tpu.ops import clusters as jcl
 from pathtracing_tpu.ops.camera import build_camera as jcamera
 from pathtracing_tpu.utils.config import RenderConfig as JConfig
@@ -292,7 +296,7 @@ def test_paged_sweep_equals_flat_sweep_bitwise(scenes):
     o, d, t0 = _wave(t)
     for cap in (t0, torch.where(t0 > 0, 1.5, 0.0)):
         ref = tct.trace_torch(t.clusters, o, d, cap)
-        new = tct.trace_paged_dnf(t.clusters, t.pages, o, d, cap)
+        new = tct.trace_paged_dnf_torch(t.clusters, t.pages, o, d, cap)
         for a, b in zip(ref, new):
             assert torch.equal(a, b)
 
@@ -326,7 +330,99 @@ def test_paged_wrapper_refuses_other_devices(scenes):
         tct.trace_paged_dnf(cl, pages, o, o, torch.ones(4, device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         tct.trace_tree_paged(cl, pages, o, o, torch.ones(4, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        tct.occluded_paged_dnf(cl, pages, o, o, torch.ones(4, device="meta"))
     assert tct.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name", sorted(BUILDERS))
+def test_paged_walk_matches_jax_kernel(scenes, name):
+    """The paged walk (the kernel's visiting order) against the JAX paged
+    kernel in interpret mode, under the tie contract."""
+    j, t = scenes[name]
+    o, d = (_rays(501, 4) if name == "mesh"
+            else _rays(501, 3, spread=1.5, center=(0, 0, 4)))
+    t0 = np.full(501, 3.0e38, np.float32)
+    t0[::11] = 0.0
+    ref = jct.trace_pallas_paged_dnf(j.clusters, j.pages, jnp.asarray(o),
+                                     jnp.asarray(d), jnp.asarray(t0),
+                                     interpret=True)
+    new = tct.trace_paged_walk_torch(t.clusters, t.pages,
+                                     *(torch.as_tensor(a) for a in (o, d, t0)))
+    _assert_tie_contract(ref, new, t0 > 0, RTOL[name])
+
+
+@pytest.mark.parametrize("name", sorted(BUILDERS))
+def test_paged_walk_equals_index_order_sweep(scenes, name):
+    """Against the index-order sweep ``trace_paged_dnf_torch``: t bit for
+    bit, slot equal or t tied, normal and material equal where the slots
+    agree, on closest-hit and capped waves; ``trace_paged_dnf`` takes the
+    walk for CPU tensors."""
+    _, t = scenes[name]
+    o, d, t0 = (_wave(t) if name == "mesh" else
+                (torch.as_tensor(a) for a in (*_rays(1501, 3, spread=1.5,
+                                                     center=(0, 0, 4)),
+                                              _wave(t)[2])))
+    for cap in (t0, torch.where(t0 > 0, 3.0, 0.0)):
+        ref = tct.trace_paged_dnf_torch(t.clusters, t.pages, o, d, cap)
+        new = tct.trace_paged_walk_torch(t.clusters, t.pages, o, d, cap)
+        assert torch.equal(ref[0], new[0])
+        same = ref[1] == new[1]
+        assert bool((same | (ref[0] == new[0])).all())
+        assert int((same & (ref[1] >= 0)).sum()) > 20
+        assert torch.equal(ref[2][same], new[2][same])
+        assert torch.equal(ref[3][same], new[3][same])
+        for a, b in zip(new, tct.trace_paged_dnf(t.clusters, t.pages, o, d,
+                                                 cap)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", sorted(BUILDERS))
+def test_occluded_paged_matches_jax_paged_occlusion(scenes, name):
+    """``occluded_paged_dnf``'s plain version against the JAX package's
+    paged occlusion (its paged kernel's ``slot >= 0``, interpret mode) and
+    against the walk's capped closest hit: bit for bit."""
+    j, t = scenes[name]
+    n = 700
+    o, d = (_rays(n, 8, spread=0.8, center=(0.0, -0.3, 0.5))
+            if name == "mesh" else _rays(n, 9, spread=1.5, center=(0, 0, 0)))
+    cap = (np.random.RandomState(3).rand(n) * 2.0).astype(np.float32)
+    cap[::11] = 0.0
+    ref = jct.trace_pallas_paged_dnf(j.clusters, j.pages, jnp.asarray(o),
+                                     jnp.asarray(d), jnp.asarray(cap),
+                                     interpret=True)[1] >= 0
+    args = (t.clusters, t.pages, *(torch.as_tensor(a) for a in (o, d, cap)))
+    occ = tct.occluded_paged_dnf(*args)
+    np.testing.assert_array_equal(np.asarray(ref), occ.numpy())
+    assert torch.equal(occ, tct.trace_paged_walk_torch(*args)[1] >= 0)
+    assert 20 < int(occ.sum()) < n - 20
+
+
+def test_paged_walk_never_visits_padding(scenes):
+    """Poison every padding cluster so that it hits every ray at t = 0.5
+    (u = v = 0 and a constant w row): the index-order sweep over the padded
+    set then reports those hits, the paged walk none of them."""
+    _, t = scenes["mesh"]
+    o, d, t0 = _wave(t)
+    n_pages, page_size, n_real = tct.page_shape(t.clusters, t.pages)
+    pad = torch.ones(n_pages * page_size, dtype=torch.bool)
+    for g, n in enumerate(n_real.tolist()):
+        pad[g * page_size:g * page_size + n] = False
+    assert bool(pad.any())
+    woop = t.clusters.woop.clone()
+    woop[pad] = 0.0
+    woop[pad, 3, 2 * tcl.CLUSTER_SIZE:] = -5e-31      # t = 5e-31 / 1e-30
+    poisoned = t.clusters._replace(woop=woop)
+    flat = tct.trace_torch(poisoned, o, d, t0)
+    assert bool((pad[flat[1][flat[1] >= 0].long()
+                     // tcl.CLUSTER_SIZE]).any())
+    assert bool((flat[0] == 0.5).any())
+    clean = tct.trace_paged_walk_torch(t.clusters, t.pages, o, d, t0)
+    for a, b in zip(clean, tct.trace_paged_walk_torch(poisoned, t.pages, o,
+                                                      d, t0)):
+        assert torch.equal(a, b)
+    assert torch.equal(tct.occluded_paged_dnf(t.clusters, t.pages, o, d, t0),
+                       clean[1] >= 0)
 
 
 def test_paged_render_matches_jax(scenes):

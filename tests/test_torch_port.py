@@ -126,6 +126,52 @@ def test_library_name_follows_source_headers_and_flags(tmp_path,
     assert cuda_build._library_path("b") != names["b"]
 
 
+def test_compiled_here_tells_a_fresh_build_from_a_cached_one(tmp_path,
+                                                             monkeypatch):
+    """A library this process compiled reports so; the same library found
+    on disk by a later process reports a cached build, log and all."""
+    monkeypatch.setattr(cuda_build, "CSRC", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(cuda_build, "_COMPILED", set())
+    # A stand-in compiler that writes its output and one line of log:
+    # ``sh -c 'touch "$2"; echo built' sh -o <out> <src>``.
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: "sh")
+    monkeypatch.setattr(cuda_build, "NVCC_FLAGS",
+                        ("-c", 'touch "$2"; echo built', "sh"))
+    (tmp_path / "a.cu").write_text("// a")
+    assert not cuda_build.compiled_here("a")
+    cuda_build.build("a")
+    assert cuda_build.compiled_here("a")
+    assert cuda_build.build_log("a").strip() == "built"
+    monkeypatch.setattr(cuda_build, "_COMPILED", set())
+    cuda_build.build("a")
+    assert not cuda_build.compiled_here("a")
+    assert cuda_build.build_log("a").strip() == "built"
+
+
+@pytest.mark.parametrize("mangled, name", [
+    ("_ZN55_GLOBAL__N__a3ed6920_22_cluster_trace_paged_cu_39034780"
+     "22trace_paged_dnf_kernelEvPKfS1_i",
+     "trace_paged_dnf_kernel"),
+    ("_ZN54_GLOBAL__N__ecd8c24e_21_cluster_trace_inst_cu_0ec8248f"
+     "21trace_dnf_inst_kernelILb1EEEvPKf",
+     "trace_dnf_inst_kernel<true>"),
+    ("_ZN54_GLOBAL__N__ecd8c24e_21_cluster_trace_inst_cu_0ec8248f"
+     "24occluded_dnf_inst_kernelILb0EEEvPKf",
+     "occluded_dnf_inst_kernel<false>"),
+    ("_Z18gather_rows_kernelPKfPKiPfiii",
+     "gather_rows_kernel"),
+    ("_Z9walk_treeILb1EEvPKf",
+     "_Z9walk_treeILb1EEvPKf"),
+])
+def test_ptxas_kernel_names(mangled, name):
+    """chip_smoke reads each kernel's registers under its own name, with
+    the bool of a templated kernel; a symbol with no ``*_kernel`` stays."""
+    import chip_smoke
+
+    assert chip_smoke.demangled_kernel(mangled) == name
+
+
 @pytest.fixture
 def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -172,7 +218,8 @@ def test_kernel_wrappers_refuse_other_devices():
         cluster_trace.occluded(cl, o, o, t)
     assert cluster_trace.LAUNCHES == before
     assert set(before) == {"trace", "occluded", "trace_inst",
-                           "occluded_inst", "trace_paged_dnf", "trace_tree",
+                           "occluded_inst", "trace_paged_dnf",
+                           "occluded_paged_dnf", "trace_tree",
                            "occluded_tree", "trace_tree_paged"}
 
 

@@ -207,8 +207,9 @@ def test_tree_walks_accept_a_paged_flat_set(paged):
 
 
 @pytest.mark.parametrize("name", [
-    "trace_torch", "trace_paged_dnf_torch", "trace_tree_torch",
-    "trace_tree_paged_torch", "occluded_torch", "occluded_tree_torch"])
+    "trace_torch", "trace_paged_dnf_torch", "trace_paged_walk_torch",
+    "trace_tree_torch", "trace_tree_paged_torch", "occluded_torch",
+    "occluded_paged_dnf_torch", "occluded_tree_torch"])
 def test_needed_evals_bounds_every_visiting_order(paged, name):
     """``chip_smoke.needed_evals``, the count behind the traversal kernels'
     bound, equals a per-cluster count with the plain versions' own slab
