@@ -17,7 +17,12 @@ Phases, in order; any failure exits non-zero:
                  shadow waves of both), with every 11th lane dead and a
                  ray count that is not a multiple of the block size; then
                  on a random triangle soup past 1024 clusters (more than
-                 one shared-memory chunk of cluster boxes);
+                 one shared-memory chunk of cluster boxes for the any
+                 hit's sweep). The closest hit, a walk of the set's
+                 cluster tree, is held bit for bit (t, slot, normal, mat)
+                 against its plain version ``trace_flat_walk_torch`` and
+                 under the tie contract against ``trace_torch`` (the JAX
+                 order);
                * the instanced traversal pair on the same four waves of
                  instanced_demo, once static with material overrides, once
                  with a motion set (a second transform per instance) at
@@ -122,6 +127,18 @@ BIG_SUBSET = 65_549          # rays of a big-scene wave held against plain
 FORCED_PAGE = 1536           # cornell_mesh(8) in 10 pages
 # Tree-node bytes: box 24, meta 8, the 16 octant links 64.
 NODE_BYTES = 96
+# The design of the closest-hit kernels on the shared walker
+# (csrc/cluster_walk.cuh), named in the kernels line.
+WALK_DESIGN = ("per-ray walk, one leaf held per lane, held leaves evaluated "
+               "by the whole warp (cluster_walk.cuh warp_walk)")
+DESIGNS = {
+    "trace_paged_dnf": {"design": WALK_DESIGN + " over each page's tree, "
+                        "pages nearest first; table normal and material"},
+    "occluded_paged_dnf": {"design": WALK_DESIGN + " over each page's tree, "
+                           "any hit"},
+    "trace_tree": {"design": WALK_DESIGN + " over the unpaged set's tree; "
+                   "normal from the winner's Woop w-row"},
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -482,16 +499,21 @@ def check_occluded(kernel, plain, wave, chunk=PLAIN_CHUNK, sub=None,
 
 def flat_fns(clusters):
     """(closest-hit kernel, its plain version, any-hit kernel, its plain
-    version) of a flat ClusterSet, as functions of a wave's arrays."""
+    version, the closest hit's index-order oracle ``trace_torch`` in
+    ``PLAIN_CHUNK`` pieces) of a flat ClusterSet, as functions of a wave's
+    arrays."""
     from pathtracing_tpu_torch.ops import cluster_trace as ct
 
     return (
         lambda o, d, t: ct.trace(clusters, o, d, t),
-        lambda o, d, t, stats: ct.trace_torch(clusters, o, d, t,
-                                              stats=stats),
+        lambda o, d, t, stats: ct.trace_flat_walk_torch(clusters, o, d, t,
+                                                        stats=stats),
         lambda o, d, t: ct.occluded(clusters, o, d, t),
         lambda o, d, t, stats: ct.occluded_torch(clusters, o, d, t,
                                                  stats=stats),
+        lambda o, d, t: in_chunks(
+            lambda *a, stats: ct.trace_torch(clusters, *a), (o, d, t), {},
+            PLAIN_CHUNK),
     )
 
 
@@ -977,7 +999,7 @@ def big_entries(big, big_launches, tree_launches):
             lambda r, rb=ray_bytes, tb=table: bound_ms(
                 r["needed_evals"], r["rays"], n_real, rb, table_bytes=tb),
             path=path, plain_rays=res[name][main]["plain_rays"],
-            vs_trace_torch="tie contract held"))
+            vs_trace_torch="tie contract held", **DESIGNS.get(name, {})))
     return entries
 
 
@@ -1027,10 +1049,11 @@ def run() -> dict:
     failures = []
     waves = make_waves(scene, camera, config)
     results = {"trace": {}, "occluded": {}}
-    tk, tp, ok, op = flat_fns(scene.clusters)
+    tk, tp, ok, op, oracle = flat_fns(scene.clusters)
     boxes = (scene.clusters.aabb_min, scene.clusters.aabb_max)
     for wname in ("camera", "bounce"):
-        res = check_trace(tk, tp, waves[wname], boxes=boxes)
+        res = check_trace(tk, tp, waves[wname], strict=True, normal_tol=0.0,
+                          reference=oracle, boxes=boxes)
         results["trace"][wname] = res
         report("trace_dnf", res, failures, wave=wname)
     for wname in ("camera_shadow", "bounce_shadow"):
@@ -1041,10 +1064,11 @@ def run() -> dict:
     # A scene past one shared-memory chunk of boxes (1024 clusters), which
     # the flagship (938) never reaches: both kernels on a triangle soup.
     soup_cl, soup_waves = make_soup()
-    tk, tp, ok, op = flat_fns(soup_cl)
+    tk, tp, ok, op, oracle = flat_fns(soup_cl)
     n_soup = int(soup_cl.woop.shape[0])
-    report("trace_dnf", check_trace(tk, tp, soup_waves["soup"]), failures,
-           wave="soup", clusters=n_soup)
+    report("trace_dnf", check_trace(tk, tp, soup_waves["soup"], strict=True,
+                                    normal_tol=0.0, reference=oracle),
+           failures, wave="soup", clusters=n_soup)
     report("occluded_dnf", check_occluded(ok, op, soup_waves["soup_shadow"]),
            failures, wave="soup_shadow", clusters=n_soup)
     del soup_cl, soup_waves
@@ -1208,7 +1232,10 @@ def run() -> dict:
             TPU_SOURCE + ":1153", launches["trace"], results["trace"],
             "camera",
             lambda r: bound_ms(r["needed_evals"], r["rays"], n_clusters,
-                               52)),
+                               52),
+            plain="trace_flat_walk_torch", vs_trace_torch="tie contract held",
+            design=WALK_DESIGN + " over the flat set's tree; table "
+            "normal and material"),
         kernel_entry(
             "occluded_dnf", "occluded_dnf_kernel", src + "cluster_trace.cu",
             TPU_SOURCE + ":1266", launches["occluded"], results["occluded"],

@@ -4,7 +4,8 @@
 // cluster-tree walks): the ray record, the safe reciprocal, the direction
 // octant, the shared-memory box staging, the slab test, the Woop triangle
 // test, the closest hit and any hit within one cluster on one lane or on
-// the whole warp, and the block-wide index-order box sweep. Every multiply
+// the whole warp, and the table epilogue of a closest hit. The tree walker
+// that evaluates with the whole warp is in cluster_walk.cuh. Every multiply
 // and add is written in the order of the plain torch versions
 // (ops/cluster_trace.py: _slab, _pair_eval) and the sources are built with
 // --fmad=false, so a kernel's t equals its plain version's bit for bit.
@@ -298,42 +299,6 @@ __device__ __forceinline__ bool warp_any_group(const WarpCluster& wc,
     if (__any_sync(kFull, hit) && lane == m) occluded = true;
   }
   return occluded;
-}
-
-// The block sweeps clusters [c_begin, c_end) in index order: boxes staged
-// in shared memory kBoxChunk at a time, each lane slab-testing against its
-// own best_t, the warp skipping a cluster that no lane pierces, and a
-// lane that pierces one evaluating its 128 triangles capped at its best_t
-// when the cluster starts (strict < across clusters). Every thread of the
-// block calls it (it synchronises); `live` says whether this lane takes
-// part.
-__device__ __forceinline__ void sweep_closest(
-    float (*box)[kBoxChunk], const float* __restrict__ aabb_min,
-    const float* __restrict__ aabb_max, const float* __restrict__ woop,
-    int c_begin, int c_end, bool live, const Ray& r, float& best,
-    int& best_slot) {
-  for (int c0 = c_begin; c0 < c_end; c0 += kBoxChunk) {
-    const int n = min(kBoxChunk, c_end - c0);
-    __syncthreads();
-    stage_boxes(box, aabb_min, aabb_max, c0, n);
-    __syncthreads();
-    if (!__any_sync(kFull, live)) continue;
-    for (int k = 0; k < n; ++k) {
-      const bool h = live && slab(box, k, r, best);
-      if (!__any_sync(kFull, h)) continue;
-      if (h) {
-        const int c = c0 + k;
-        int lane_min;
-        const float t_min = closest_in_cluster(
-            woop + static_cast<size_t>(c) * 4 * kWoopCols, r, best,
-            lane_min);
-        if (t_min < best) {
-          best = t_min;
-          best_slot = c * kClusterSize + lane_min;
-        }
-      }
-    }
-  }
 }
 
 // Write ray i's closest-hit result, its normal and material read from the

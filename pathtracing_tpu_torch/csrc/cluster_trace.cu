@@ -1,5 +1,6 @@
-// Cluster-sweep traversal kernels for Hopper (sm_90a): closest hit and
-// any-hit of rays against 128-triangle Woop clusters.
+// Flat cluster traversal kernels for Hopper (sm_90a): closest hit and any
+// hit of rays against 128-triangle Woop clusters of a flat ClusterSet (at
+// most DNF_MAX_CLUSTERS clusters).
 //
 // Replaces the TPU kernels of the JAX package:
 //   trace_dnf_kernel    <- pathtracing_tpu/ops/cluster_trace.py
@@ -10,47 +11,65 @@
 // dead lane; slot = cluster*128 + lane (-1 on a miss, with normal 0 and
 // mat 0 and t passed through); a hit needs u >= 0, v >= 0, u+v <= 1,
 // T_MIN < t < best_t with |dp_w| clamped at 1e-30; the slab test uses the
-// safe reciprocal of the direction.
+// safe reciprocal of the direction; normal and material are read from the
+// cluster tables.
 //
-// What bounds it on this card: operations. Each live ray slab-tests every
-// cluster box (~20 float ops) and, for each box it pierces before its
-// best_t, evaluates 128 Woop triangles (~45 float ops each). The bytes are
-// small: 52 B per ray in and out, and the cluster tables (7.7 KB per
-// cluster, 7.2 MB for cornell_mesh(6)) stay in the 50 MB L2.
+// What bounds them on this card: operations, the Woop tests the rays need:
+// each pair of a live ray and a cluster box it pierces before its final
+// hit (any hit: before its cap, one pair for an occluded ray), times 128
+// triangles of 48 float32 operations on the CUDA cores. The tensor cores
+// stay out: the Woop tests must round as the plain versions do, and TF32
+// breaks geometry. The bytes are small: 52 B per ray in and out, and the
+// cluster tables (7.7 KB per cluster, 7.2 MB for cornell_mesh(6)) and the
+// tree (96 B a node) stay in the 50 MB L2.
 //
-// Design: one thread per ray, blocks of 128. Cluster boxes are staged in
-// shared memory in chunks of 1024 (24 KB). The warp sweeps the clusters
-// together in index order; each lane slab-tests against its own best_t
-// and the warp skips a cluster with __any_sync when no lane needs it.
-// Lanes that pierce a box evaluate its 128 triangles; the Woop columns
-// are broadcast loads (every lane of the warp reads the same address).
-// Strict < across clusters and the smallest lane on a tie within one
-// reproduce the plain sweep's tie rule (trace_torch). The any-hit kernel
-// retires a lane at its first hit and a warp once every lane is occluded
-// or dead (no lane left pending, __any_sync). The TPU kernels' packed-key matrix, windowed pops
-// and tile-uniform walk are not carried over: they exist only because the
-// TPU has no per-lane gather or divergent control flow. Built with
-// --fmad=false so every multiply and add rounds as in the plain torch
-// version, which makes the card-side comparison exact in t.
+// Design of the closest hit (trace_dnf_kernel). The TPU sweeps every
+// cluster box per ray tile, because Mosaic has no per-lane control flow;
+// the first Hopper design kept that sweep, slab-testing all boxes per warp
+// and evaluating a pierced cluster's 128 triangles on one lane. Here each
+// lane walks the flat set's threaded cluster tree (ClusterSet.node_box,
+// node_meta, oct_links) along its own direction octant, near children
+// first, so early hits cull the subtrees behind them; leaves are held one
+// per lane and evaluated by the whole warp, four triangles a lane with
+// coalesced Woop loads: the walker of cluster_walk.cuh
+// (warp_walk<kPaged = false>), which the paged and the tree closest hits
+// share. The (t, index) reduction keeps the smallest index on a tie, and
+// strict < across clusters keeps the first cluster of the walk, so t,
+// slot, normal and mat equal the plain walk (trace_flat_walk_torch) bit
+// for bit. Against the index-order sweep (trace_torch, the JAX order) t is
+// equal bit for bit and the slot too, except where two clusters tie in t.
+//
+// Design of the any hit (occluded_dnf_kernel): one thread per ray, blocks
+// of 128. Cluster boxes are staged in shared memory in chunks of 1024 (24
+// KB); the warp sweeps them in index order, each lane slab-testing against
+// its cap, and skips a cluster with __any_sync when no lane needs it. A
+// lane that pierces a box tests its 128 triangles alone and retires at its
+// first hit; a warp stops once every lane is occluded or dead.
+//
+// Built with --fmad=false so every multiply and add rounds as in the plain
+// torch versions, which makes the card-side comparison exact.
 
-#include "cluster_common.cuh"
+#include "cluster_walk.cuh"
 
 using namespace ptpu;
 
 namespace {
 
-__global__ void __launch_bounds__(kBlock)
+// At least two blocks per SM: under the bare bound ptxas (CUDA 12.8,
+// sm_90a) settled on 80 registers and spilled a 16-bit temporary to the
+// stack; this target gives 99 registers and no spills.
+__global__ void __launch_bounds__(kBlock, 2)
 trace_dnf_kernel(const float* __restrict__ origin,
                  const float* __restrict__ direction,
                  const float* __restrict__ t_init,
-                 const float* __restrict__ aabb_min,
-                 const float* __restrict__ aabb_max,
                  const float* __restrict__ woop,
                  const float* __restrict__ normal,
-                 const int* __restrict__ mat, int n_rays, int n_clusters,
+                 const int* __restrict__ mat,
+                 const float* __restrict__ node_box,
+                 const int* __restrict__ node_meta,
+                 const int* __restrict__ links, int n_rays, int n_nodes,
                  float* __restrict__ t_out, int* __restrict__ slot_out,
                  float* __restrict__ normal_out, int* __restrict__ mat_out) {
-  __shared__ float box[6][kBoxChunk];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = i < n_rays;
   Ray r = {};
@@ -59,13 +78,11 @@ trace_dnf_kernel(const float* __restrict__ origin,
     r = load_ray(origin, direction, i);
     best = t_init[i];
   }
-  const bool live = in_range && best > 0.0f;
   int best_slot = -1;
-
-  if (__syncthreads_or(live)) {
-    sweep_closest(box, aabb_min, aabb_max, woop, 0, n_clusters, live, r,
-                  best, best_slot);
-  }
+  bool unused = false;
+  warp_walk<false, false>(woop, node_box, node_meta, links, 1, 0, n_nodes,
+                          in_range && best > 0.0f, r, best, best_slot,
+                          unused);
   if (in_range) {
     store_closest(i, best, best_slot, normal, mat, t_out, slot_out,
                   normal_out, mat_out);
@@ -119,16 +136,17 @@ occluded_dnf_kernel(const float* __restrict__ origin,
 extern "C" {
 
 int ptpu_trace_dnf(const float* origin, const float* direction,
-                   const float* t_init, const float* aabb_min,
-                   const float* aabb_max, const float* woop,
-                   const float* normal, const int* mat, int n_rays,
-                   int n_clusters, float* t_out, int* slot_out,
-                   float* normal_out, int* mat_out, void* stream) {
+                   const float* t_init, const float* woop,
+                   const float* normal, const int* mat,
+                   const float* node_box, const int* node_meta,
+                   const int* links, int n_rays, int n_nodes, float* t_out,
+                   int* slot_out, float* normal_out, int* mat_out,
+                   void* stream) {
   if (n_rays <= 0) return 0;
   const int grid = (n_rays + kBlock - 1) / kBlock;
   trace_dnf_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      origin, direction, t_init, aabb_min, aabb_max, woop, normal, mat,
-      n_rays, n_clusters, t_out, slot_out, normal_out, mat_out);
+      origin, direction, t_init, woop, normal, mat, node_box, node_meta,
+      links, n_rays, n_nodes, t_out, slot_out, normal_out, mat_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,7 +15,7 @@
 // (page*P + page-local cluster)*128 + lane. The normal is the winner's
 // Woop w-row, normalised with rsqrt, as the JAX tree kernels compute it.
 //
-// What bounds it on this card: operations, the Woop tests the rays need:
+// What bounds them on this card: operations, the Woop tests the rays need:
 // each pair of a ray and a cluster box it pierces before its final hit (for
 // the any hit: before its cap, one cluster for an occluded ray), times 128
 // triangles. The walk adds one slab test per visited node, and evaluates
@@ -25,20 +25,28 @@
 // Design: the TPU walks one scalar node index per 256-ray tile, with the
 // tile's octant taken from its first ray, a K-step lookahead over
 // precomputed candidate boxes and a leaf queue, because Mosaic has no
-// per-lane control flow or gather. Here each thread walks its own ray:
-// it picks its own direction octant (x>0 -> +4, y>0 -> +2, z>0 -> +1; a
-// zero component counts as negative), reads each node's box from global
-// memory, evaluates the 128 triangles of a leaf whose box it pierces
-// before its best_t, and follows next = hit ? hit_link[oct][n] :
-// miss_link[oct][n] until n >= N. The octant order visits near children
-// first, so early hits cull the subtrees behind them. The any-hit walk
-// retires a lane at its first hit. Divergence between the lanes of a warp
-// is the cost of this simple first design. Built with --fmad=false, so
-// t, slot, normal and mat equal the plain per-ray walks
-// (trace_tree_torch, occluded_tree_torch, trace_tree_paged_torch) bit for
-// bit.
+// per-lane control flow or gather. Here each thread walks its own ray: it
+// picks its own direction octant (x>0 -> +4, y>0 -> +2, z>0 -> +1; a zero
+// component counts as negative), reads each node's box from global memory,
+// and follows next = hit ? hit_link[oct][n] : miss_link[oct][n] until n >=
+// N. The octant order visits near children first, so early hits cull the
+// subtrees behind them.
+//   trace_tree_kernel holds each leaf it pierces before its best t and
+// evaluates it with the whole warp: the walker of cluster_walk.cuh
+// (warp_walk<kPaged = false>), shared with the flat and the paged closest
+// hits; every lane of the warp reaches it, out-of-range lanes with live =
+// false. Its epilogue (store_tree_hit) takes the normal from the winner's
+// Woop w-row.
+//   occluded_tree_kernel and trace_tree_paged_kernel (walk_tree) still
+// evaluate each leaf on the lane that reached it, which retires at its
+// first hit in the any hit; divergence between the lanes of a warp is the
+// cost of that first design.
+// The (t, index) reduction keeps the smallest index on a tie, as the serial
+// scan does, and the sources are built with --fmad=false, so t, slot,
+// normal and mat equal the plain per-ray walks (trace_tree_torch,
+// occluded_tree_torch, trace_tree_paged_torch) bit for bit.
 
-#include "cluster_common.cuh"
+#include "cluster_walk.cuh"
 
 using namespace ptpu;
 
@@ -119,16 +127,22 @@ trace_tree_kernel(const float* __restrict__ origin,
                   float* __restrict__ t_out, int* __restrict__ slot_out,
                   float* __restrict__ normal_out, int* __restrict__ mat_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(origin, direction, i);
-  float best = t_init[i];
-  int best_slot = -1;
-  if (best > 0.0f) {
-    walk_tree<false>(node_box, node_meta, links, n_nodes, woop, 0, r,
-                     octant(r), best, best_slot);
+  const bool in_range = i < n_rays;
+  Ray r = {};
+  float best = 0.0f;
+  if (in_range) {
+    r = load_ray(origin, direction, i);
+    best = t_init[i];
   }
-  store_tree_hit(i, best, best_slot, woop, mat, t_out, slot_out, normal_out,
-                 mat_out);
+  int best_slot = -1;
+  bool unused = false;
+  warp_walk<false, false>(woop, node_box, node_meta, links, 1, 0, n_nodes,
+                          in_range && best > 0.0f, r, best, best_slot,
+                          unused);
+  if (in_range) {
+    store_tree_hit(i, best, best_slot, woop, mat, t_out, slot_out,
+                   normal_out, mat_out);
+  }
 }
 
 __global__ void __launch_bounds__(kBlock)

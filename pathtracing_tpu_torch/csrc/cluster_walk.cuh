@@ -1,0 +1,139 @@
+// The warp-cooperative cluster-tree walker, shared by the closest-hit
+// kernels of flat scenes (cluster_trace.cu), of unpaged scenes past the
+// flat budget (cluster_trace_tree.cu) and by both kernels of paged scenes
+// (cluster_trace_paged.cu).
+//
+// A tree is a threaded binary tree over cluster boxes (ops/clusters.py
+// build_cluster_tree, build_octant_trees): node_box (6, N) [xyz min, xyz
+// max], node_meta (2, N) [skip, cluster id or -1], links (16, N) [hit
+// links of octants 0..7, then miss links]. A paged scene has one tree per
+// page, stacked (G, 6, Np), (G, 2, Np), (G, 16, Np), with page-local leaf
+// ids; a flat set has one, with the set's own ids.
+//
+// Each lane walks its own ray along its direction octant's links: slab
+// test of the node's box against the ray's best t, then next = hit ?
+// hit_link[oct][n] : miss_link[oct][n] until n passes the last node. A
+// lane that reaches a leaf it pierces holds it and waits; when every lane
+// of the warp holds a leaf or has finished, the warp evaluates the held
+// pairs together (warp_closest_group / warp_any_group in
+// cluster_common.cuh): lanes holding one cluster are grouped with
+// __match_any_sync and share its coalesced Woop loads, each pair takes 32
+// lanes of four triangles, and the (t, index) reduction keeps the smallest
+// index on a tie, as the serial scan does. Holding one leaf at a time keeps
+// each ray's sequence of leaves and caps that of the plain walk
+// (cluster_trace._walk_torch), so with --fmad=false the result equals it
+// bit for bit. The any hit retires a lane at its first occluding cluster.
+//
+// kPaged: the lane visits its pages nearest first, in the order of their
+// root boxes' entry distances (sorted by selection, ties by page index),
+// and stops at the first page it enters no earlier than its best t; leaf
+// ids become g * page_size + cid. Without pages there is no page loop: the
+// lane walks the one tree from node 0 (n_pages and page_size unused), and
+// the leaf id is the cluster id.
+//
+// Every lane of the warp must call the walker, dead and out-of-range lanes
+// with live = false: its warp intrinsics name all 32 lanes.
+
+#pragma once
+
+#include "cluster_common.cuh"
+
+namespace ptpu {
+
+// Entry distance of a ray into a page's root box (column 0 of its (6,
+// page_nodes) table), kBig when the ray misses the box: entry < best
+// exactly when slab_strided passes against best.
+__device__ __forceinline__ float page_entry(const float* root,
+                                            int page_nodes, const Ray& r) {
+  float tn, tf;
+  slab_range(root, root + 3 * page_nodes, page_nodes, r, tn, tf);
+  return (tn <= tf && tf > kTMin) ? tn : kBig;
+}
+
+// The warp walks its lanes' rays through the tree or pages (see the note
+// above). Closest hit: updates best and best_slot. kAnyHit: best is the
+// fixed cap and `occluded` is set at the first hit.
+template <bool kPaged, bool kAnyHit>
+__device__ __forceinline__ void warp_walk(
+    const float* __restrict__ woop, const float* __restrict__ node_box,
+    const int* __restrict__ node_meta, const int* __restrict__ links,
+    int n_pages, int page_size, int page_nodes, bool live, const Ray& r,
+    float& best, int& best_slot, bool& occluded) {
+  const int lane = threadIdx.x % kWarp;
+  const int oct = octant(r);
+  bool walking = live;
+  int g = kPaged ? -1 : 0;      // page being walked, -1 between pages
+  int n = 0;                    // its next node
+  float last_e = -kBig;         // entry and index of the page walked last
+  int last_g = -1;              // (every page comes after these)
+  for (;;) {
+    int held = -1;              // global id of the leaf this lane holds
+    while (walking) {
+      if (kPaged && g < 0) {
+        // The next page in (entry, index) order after the last one.
+        float next_e = __int_as_float(0x7f800000);  // +inf
+        int next_g = -1;
+        for (int p = 0; p < n_pages; ++p) {
+          const float e = page_entry(
+              node_box + static_cast<size_t>(p) * 6 * page_nodes, page_nodes,
+              r);
+          const bool later = e > last_e || (e == last_e && p > last_g);
+          if (later && e < next_e) {
+            next_e = e;
+            next_g = p;
+          }
+        }
+        // Pages come nearest first: none after this one can be entered.
+        if (next_g < 0 || !(next_e < best)) {
+          walking = false;
+          break;
+        }
+        g = next_g;
+        n = 0;
+        last_e = next_e;
+        last_g = next_g;
+      }
+      if (n >= page_nodes) {
+        if (!kPaged) {
+          walking = false;
+          break;
+        }
+        g = -1;
+        continue;
+      }
+      const size_t base = static_cast<size_t>(g) * page_nodes;
+      const bool hit = slab_strided(node_box + 6 * base + n, page_nodes, r,
+                                    best);
+      const int cid = __ldg(node_meta + 2 * base + page_nodes + n);
+      n = __ldg(links + 16 * base +
+                static_cast<size_t>(hit ? oct : 8 + oct) * page_nodes + n);
+      if (hit && cid >= 0) {
+        held = kPaged ? g * page_size + cid : cid;
+        break;
+      }
+    }
+    const unsigned holders = __ballot_sync(kFull, held >= 0);
+    if (holders == 0) return;
+    const unsigned same = __match_any_sync(kFull, held);
+    unsigned todo = holders;
+    while (todo != 0) {
+      const int leader = __ffs(todo) - 1;
+      const unsigned group = __shfl_sync(kFull, same, leader);
+      const int c = __shfl_sync(kFull, held, leader);
+      WarpCluster wc;
+      load_warp_cluster(wc, woop + static_cast<size_t>(c) * 4 * kWoopCols,
+                        lane);
+      if (kAnyHit) {
+        if (warp_any_group(wc, group, r, best, lane)) {
+          occluded = true;
+          walking = false;
+        }
+      } else {
+        warp_closest_group(wc, group, r, c, lane, best, best_slot);
+      }
+      todo &= ~group;
+    }
+  }
+}
+
+}  // namespace ptpu

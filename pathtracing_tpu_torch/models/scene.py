@@ -109,6 +109,8 @@ _UNPORTED_FIELDS = {
 _FLOAT_FIELDS = ("sph_center", "sph_radius", "tri_v0", "tri_e1", "tri_e2",
                  "mat_albedo", "mat_param", "mat_emit")
 _INT_FIELDS = ("sph_mat", "tri_mat", "mat_type")
+_CLUSTER_DTYPES = {"mat": torch.int32, "node_meta": torch.int32,
+                   "oct_links": torch.int32}
 
 
 def _fields(x):
@@ -120,7 +122,8 @@ def scene_from_numpy(arrays, device) -> Scene:
     arrays (a dict, or the Scene NamedTuple mapped through ``np.asarray``;
     ``clusters``, ``lights``, ``instances`` and ``pages`` may be dicts or
     NamedTuples). Fields the port does not carry must be None; the JAX BVH
-    and the TPU lookahead kernel's ``cand_box`` blocks are dropped."""
+    and the TPU lookahead kernel's ``cand_box`` blocks are dropped. A
+    cluster set without a tree gets one (``clusters.with_tree``)."""
     arrays = _fields(arrays)
     for name, item in _UNPORTED_FIELDS.items():
         if arrays.get(name) is not None:
@@ -146,6 +149,11 @@ def scene_from_numpy(arrays, device) -> Scene:
         x = table.get(name)
         return None if x is None else dev(x, dtype)
 
+    # The flat kernels walk the set's cluster tree: a set that comes
+    # without one gets one, built over its real clusters.
+    host_cl = cluster_ops.with_tree(cluster_ops.ClusterSet(**{
+        f: None if cl.get(f) is None else np.asarray(cl[f])
+        for f in cluster_ops.ClusterSet._fields}))
     fields = {n: dev(arrays[n], torch.float32) for n in _FLOAT_FIELDS}
     fields.update({n: dev(arrays[n], torch.int32) for n in _INT_FIELDS})
     instances = None
@@ -183,16 +191,10 @@ def scene_from_numpy(arrays, device) -> Scene:
         mat_metallic=opt(arrays, "mat_metallic", torch.float32),
         mat_clearcoat=opt(arrays, "mat_clearcoat", torch.float32),
         instances=instances, pages=pages,
-        clusters=cluster_ops.ClusterSet(
-            aabb_min=dev(cl["aabb_min"], torch.float32),
-            aabb_max=dev(cl["aabb_max"], torch.float32),
-            woop=dev(cl["woop"], torch.float32),
-            normal=dev(cl["normal"], torch.float32),
-            mat=dev(cl["mat"], torch.int32),
-            node_box=opt(cl, "node_box", torch.float32),
-            node_meta=opt(cl, "node_meta", torch.int32),
-            oct_links=opt(cl, "oct_links", torch.int32),
-        ),
+        clusters=cluster_ops.ClusterSet(*(
+            None if x is None else dev(x, _CLUSTER_DTYPES.get(f,
+                                                             torch.float32))
+            for f, x in zip(cluster_ops.ClusterSet._fields, host_cl))),
         lights=lights.LightTable(
             kind=opt(li, "kind", torch.int32),
             packed=opt(li, "packed", torch.float32),
@@ -552,7 +554,10 @@ def _sphere_pass(scene: Scene, origin, direction):
 
 _ROUTES = {
     # (query, route): (plain version, dispatching kernel wrapper)
-    ("trace", "flat"): (cluster_trace.trace_torch, cluster_trace.trace),
+    # The flat closest hit walks the set's cluster tree in both versions;
+    # trace_torch (the JAX order) is the oracle the tests hold it to.
+    ("trace", "flat"): (cluster_trace.trace_flat_walk_torch,
+                        cluster_trace.trace),
     ("occluded", "flat"): (cluster_trace.occluded_torch,
                            cluster_trace.occluded),
     ("trace", "instanced"): (cluster_trace.trace_inst_torch,

@@ -16,10 +16,15 @@ True where some triangle lies strictly inside (T_MIN, t_max); ``t_max <=
 0`` marks a dead lane.
 
 ``trace`` and ``occluded`` dispatch on the tensors' device: a CPU tensor
-takes the plain version (``trace_torch`` / ``occluded_torch``, a torch port
-of the JAX package's ``trace_jax`` sweep), a CUDA tensor launches the
-hand-written kernel in ``csrc/cluster_trace.cu`` or raises. Each launch
-adds one to ``LAUNCHES``.
+takes the plain version, a CUDA tensor launches the hand-written kernel in
+``csrc/cluster_trace.cu`` or raises. Each launch adds one to ``LAUNCHES``.
+``trace`` walks the flat set's cluster tree (``ClusterSet.node_box``,
+``node_meta``, ``oct_links``; plain version ``trace_flat_walk_torch``, the
+kernel's visiting order, normal and material from the tables);
+``trace_torch``, a torch port of the JAX package's ``trace_jax`` index-order
+sweep, is the oracle it is held to: t bit for bit, slot equal or t tied.
+``occluded`` sweeps the boxes in index order (plain version
+``occluded_torch``).
 
 Instanced scenes (``ops.clusters.InstanceSet``) go through
 
@@ -226,7 +231,9 @@ def _start(origin, t_init):
 def trace_torch(clusters, origin, direction, t_init, stats=None):
     """Plain closest-hit sweep: every cluster in index order, strict ``<``
     across clusters and the smallest lane on a tie within one (the JAX
-    ``trace_jax`` tie rule). ``stats`` (optional dict) receives
+    ``trace_jax`` order and tie rule). The oracle of every closest-hit
+    kernel; the flat kernel's own plain version is
+    ``trace_flat_walk_torch``. ``stats`` (optional dict) receives
     ``slab_tests`` and ``cluster_evals``: the (ray, cluster) pairs this
     input needs."""
     best_t, best_slot = _start(origin, t_init)
@@ -362,12 +369,34 @@ def _walk_torch(tree, woop, origin, direction, inv_d, octant, best_t,
         node[idx] = nxt
 
 
+_TREE_FIELDS = ("node_box", "node_meta", "oct_links")
+
+
+def _require_tree(clusters):
+    missing = [f for f in _TREE_FIELDS if getattr(clusters, f) is None]
+    if missing:
+        raise ValueError("this ClusterSet carries no cluster tree (missing: "
+                         + ", ".join(missing)
+                         + "; ops.clusters.with_tree builds one)")
+
+
 def _tree(clusters):
-    if clusters.node_box is None:
-        raise ValueError("this ClusterSet carries no cluster tree")
+    _require_tree(clusters)
     n = clusters.node_box.shape[1]
     return (clusters.node_box[None], clusters.node_meta[None],
             clusters.oct_links.reshape(1, 16, n))
+
+
+def _walk_closest(clusters, origin, direction, t_init, stats):
+    """(best_t, best_slot) of the plain closest-hit walk of the set's
+    cluster tree (see ``_walk_torch``)."""
+    best_t, best_slot = _start(origin, t_init)
+    counts = _Counts(stats)
+    _walk_torch(_tree(clusters), clusters.woop, origin, direction,
+                _safe_inv(direction), _octant(direction), best_t, best_slot,
+                counts)
+    counts.record()
+    return best_t, best_slot
 
 
 def _woop_normal_hit(clusters, best_t, best_slot):
@@ -389,15 +418,21 @@ def _woop_normal_hit(clusters, best_t, best_slot):
 
 def trace_tree_torch(clusters, origin, direction, t_init, stats=None):
     """Plain per-ray cluster-tree walk, closest hit (see ``_walk_torch``):
-    the clusters each ray reaches, in the kernel's order. ``stats``:
-    ``slab_tests`` (node visits) and ``cluster_evals``."""
-    best_t, best_slot = _start(origin, t_init)
-    counts = _Counts(stats)
-    _walk_torch(_tree(clusters), clusters.woop, origin, direction,
-                _safe_inv(direction), _octant(direction), best_t, best_slot,
-                counts)
-    counts.record()
-    return _woop_normal_hit(clusters, best_t, best_slot)
+    the clusters each ray reaches, in the kernel's order; the normal from
+    the winner's Woop w-row. ``stats``: ``slab_tests`` (node visits) and
+    ``cluster_evals``."""
+    return _woop_normal_hit(clusters, *_walk_closest(
+        clusters, origin, direction, t_init, stats))
+
+
+def trace_flat_walk_torch(clusters, origin, direction, t_init, stats=None):
+    """Plain closest hit of a flat set in its kernel's order: the walk of
+    ``trace_tree_torch`` over the set's cluster tree, with normal and
+    material from the cluster tables, as the JAX DNF kernel gives them.
+    Against ``trace_torch`` (index order): t bit for bit, slot equal or t
+    tied. ``stats`` as in ``trace_tree_torch``."""
+    return _table_hit(clusters, *_walk_closest(
+        clusters, origin, direction, t_init, stats))
 
 
 def occluded_tree_torch(clusters, origin, direction, t_max, stats=None):
@@ -685,9 +720,10 @@ def occluded_inst_torch(clusters, inst, origin, direction, t_max, time=None,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # origin, direction, t_init, aabb_min, aabb_max, woop, normal, mat,
-    # n_rays, n_clusters, t_out, slot_out, normal_out, mat_out, stream
-    "ptpu_trace_dnf": [_P] * 8 + [_I, _I] + [_P] * 5,
+    # origin, direction, t_init, woop, normal, mat, node_box, node_meta,
+    # oct_links, n_rays, n_nodes, t_out, slot_out, normal_out, mat_out,
+    # stream
+    "ptpu_trace_dnf": [_P] * 9 + [_I, _I] + [_P] * 5,
     # origin, direction, t_max, aabb_min, aabb_max, woop, n_rays,
     # n_clusters, occ_out, stream
     "ptpu_occluded_dnf": [_P] * 6 + [_I, _I] + [_P] * 2,
@@ -777,32 +813,26 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def trace(clusters, origin, direction, t_init):
-    """Closest hit (see the module contract). CPU tensors take
-    ``trace_torch``; CUDA tensors launch ``trace_dnf_kernel``."""
-    if origin.device.type == "cpu":
-        return trace_torch(clusters, origin, direction, t_init)
+    """Closest hit (see the module contract) by a walk of the flat set's
+    cluster tree; a set without a tree raises. CPU tensors take
+    ``trace_flat_walk_torch``; CUDA tensors launch ``trace_dnf_kernel``."""
+    dev = origin.device
+    if dev.type == "cpu":
+        return trace_flat_walk_torch(clusters, origin, direction, t_init)
     r, rays = _ray_args(origin, direction, t_init, "t_init")
-    c, (bmin, bmax, woop) = _cluster_args(clusters, origin.device)
-    normal_tab = _checked(clusters.normal, torch.float32,
-                          (c, 3, CLUSTER_SIZE), "normal")
-    mat_tab = _checked(clusters.mat, torch.int32, (c, CLUSTER_SIZE), "mat")
-    t = torch.empty(r, dtype=torch.float32, device=origin.device)
-    slot = torch.empty(r, dtype=torch.int32, device=origin.device)
-    normal = torch.empty((r, 3), dtype=torch.float32, device=origin.device)
-    mat = torch.empty(r, dtype=torch.int32, device=origin.device)
+    n, *tree = _tree_args(clusters, dev)
+    tables = _hit_tables(clusters, dev)
+    out = _closest_out(r, dev)
     if r == 0:
-        return t, slot, normal, mat
-    lib = _library()
-    stream = torch.cuda.current_stream(origin.device).cuda_stream
-    err = lib.ptpu_trace_dnf(
-        *(x.data_ptr() for x in rays), bmin.data_ptr(), bmax.data_ptr(),
-        woop.data_ptr(), normal_tab.data_ptr(), mat_tab.data_ptr(), r, c,
-        t.data_ptr(), slot.data_ptr(), normal.data_ptr(), mat.data_ptr(),
-        stream,
+        return out
+    err = _library().ptpu_trace_dnf(
+        *(x.data_ptr() for x in rays), *(x.data_ptr() for x in tables),
+        *(x.data_ptr() for x in tree), r, n, *(x.data_ptr() for x in out),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "trace_dnf_kernel")
     LAUNCHES["trace"] += 1
-    return t, slot, normal, mat
+    return out
 
 
 def occluded(clusters, origin, direction, t_max):
@@ -1050,8 +1080,7 @@ def occluded_paged_dnf(clusters, pages, origin, direction, t_max):
 
 def _tree_args(clusters, device):
     """Checked (n_nodes, node_box, node_meta, oct_links) of a flat set."""
-    if clusters.node_box is None:
-        raise ValueError("this ClusterSet carries no cluster tree")
+    _require_tree(clusters)
     n = clusters.node_box.shape[1]
     tables = (
         _checked(clusters.node_box, torch.float32, (6, n), "node_box"),

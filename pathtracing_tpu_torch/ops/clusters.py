@@ -249,6 +249,21 @@ def partition_pages(aabb_min: np.ndarray, aabb_max: np.ndarray,
     return pages
 
 
+def with_tree(cs: ClusterSet) -> ClusterSet:
+    """``cs`` (numpy) with its threaded cluster tree: as it is when it
+    carries one, else with one built over its real clusters (padding
+    clusters' inverted boxes stay out of it), leaf ids in the set's own
+    numbering. The flat kernels walk it."""
+    if cs.node_box is not None:
+        return cs
+    real = np.nonzero((cs.aabb_min <= cs.aabb_max).all(axis=1))[0]
+    nb, nm, child, axis, flo = build_cluster_tree(cs.aabb_min[real],
+                                                  cs.aabb_max[real])
+    ol = build_octant_trees(child, axis, flo)
+    nm[1] = np.where(nm[1] >= 0, real[np.maximum(nm[1], 0)], -1)
+    return cs._replace(node_box=nb, node_meta=nm, oct_links=ol)
+
+
 def build_pages(cs: ClusterSet, page_size: int = PAGE_CLUSTERS):
     """Repack a ClusterSet page-contiguously and build per-page trees.
 
@@ -317,12 +332,8 @@ def build_pages(cs: ClusterSet, page_size: int = PAGE_CLUSTERS):
         metas.append(nm)
         links_l.append(ol.reshape(16, np_max))
 
-    if cs.node_box is None:
-        nb, nm, child, axis, flo = build_cluster_tree(cs.aabb_min,
-                                                      cs.aabb_max)
-        ol = build_octant_trees(child, axis, flo)
-    else:
-        nb, nm, ol = cs.node_box, cs.node_meta, cs.oct_links
+    tree = with_tree(cs)
+    nb, nm, ol = tree.node_box, tree.node_meta, tree.oct_links
     # Renumber the global tree's cluster ids to the page order.
     remap = np.full(cs.aabb_min.shape[0], -1, np.int64)
     for p, ids in enumerate(pages):

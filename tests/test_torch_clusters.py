@@ -280,3 +280,114 @@ def test_routes_agree_on_cpu_tensors(scenes):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="traversal"):
         tscene_mod.intersect_batch(t, *args, "bvh")
+
+
+# --- the flat closest hit's walk of the set's cluster tree ----------------
+
+
+def _walk(t, o, d, t0, **kw):
+    return tct.trace_flat_walk_torch(t.clusters, torch.as_tensor(o),
+                                     torch.as_tensor(d), torch.as_tensor(t0),
+                                     **kw)
+
+
+@pytest.mark.parametrize("name", ["mesh", "soup"])
+@pytest.mark.parametrize("oracle", ["trace_jax", "dnf_kernel_interpret"])
+def test_flat_walk_matches_jax(scenes, name, oracle):
+    """The walk (the flat kernel's plain version) meets the tie contract
+    against the JAX sweep and the JAX DNF kernel, dead lanes included."""
+    j, t = scenes[name]
+    # 529 and 333 rays: not warp multiples.
+    o, d = _camera_rays(23) if name == "mesh" else random_rays(333, 21)
+    t0 = _t0(o.shape[0])
+    args = (j.clusters, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t0))
+    if oracle == "trace_jax":
+        ref = jct.trace_jax(*args)
+    else:
+        ref = jct.trace_pallas_dnf(*args, interpret=True)
+    new = _walk(t, o, d, t0)
+    _assert_tie_contract(ref, new, t0, RTOL[name])
+    assert int((_np(new[1]) >= 0).sum()) > 20
+
+
+@pytest.mark.parametrize("name", ["mesh", "soup"])
+def test_flat_walk_keeps_trace_torch_t_bit_for_bit(scenes, name):
+    """Against the index-order sweep the walk keeps t bit for bit (dead
+    lanes pass t_init through), the slot or a tied t, and reads normal and
+    material from the tables at its own slot (0 on a miss)."""
+    _, t = scenes[name]
+    o, d = random_rays(701, 22)
+    t0 = _t0(701)
+    t0[3::17] = np.random.RandomState(22).rand(len(t0[3::17])) * 2.0
+    ref = tct.trace_torch(t.clusters, *(torch.as_tensor(a)
+                                        for a in (o, d, t0)))
+    new = _walk(t, o, d, t0)
+    assert torch.equal(new[0], ref[0])
+    assert bool(((new[1] == ref[1]) | (new[0] == ref[0])).all())
+    hit = new[1] >= 0
+    assert int(hit.sum()) > 20
+    normal, mat = tct.lookup_hit(t.clusters, new[1])
+    assert torch.equal(new[2][hit], normal[hit])
+    assert torch.equal(new[3][hit], mat[hit])
+    assert not bool(new[2][~hit].any()) and not bool(new[3][~hit].any())
+
+
+def test_flat_route_is_the_walk(scenes):
+    """The flat closest hit's route pairs the walk with the kernel wrapper,
+    and on CPU tensors the wrapper is the walk."""
+    route = tscene_mod._ROUTES["trace", "flat"]
+    assert route == (tct.trace_flat_walk_torch, tct.trace)
+    _, t = scenes["mesh"]
+    o, d = random_rays(97, 23)
+    t0 = _t0(97)
+    args = [torch.as_tensor(a) for a in (o, d, t0)]
+    for a, b in zip(tct.trace(t.clusters, *args), _walk(t, o, d, t0)):
+        assert torch.equal(a, b)
+
+
+def test_flat_walk_refuses_a_set_without_tree(scenes):
+    _, t = scenes["mesh"]
+    o, d = random_rays(8, 24)
+    args = [torch.as_tensor(a) for a in (o, d, _t0(8))]
+    for field in ("node_box", "oct_links"):
+        bare = t.clusters._replace(**{field: None})
+        with pytest.raises(ValueError, match=f"no cluster tree.*{field}"):
+            tct.trace(bare, *args)
+        with pytest.raises(ValueError, match=field):
+            tct._tree_args(bare, torch.device("cpu"))
+
+
+def test_scene_from_numpy_builds_a_missing_tree(scenes):
+    """A JAX set that comes without its tree gets one over its clusters:
+    the same tree ``SceneBuilder.build`` gives, so the walk finds the
+    same hits."""
+    j, t = scenes["mesh"]
+    arrays = jax.tree.map(np.asarray, j)._asdict()
+    arrays["clusters"] = arrays["clusters"]._replace(
+        node_box=None, node_meta=None, oct_links=None)
+    s = tscene_mod.scene_from_numpy(arrays, "cpu")
+    for f in ("node_box", "node_meta", "oct_links"):
+        assert torch.equal(getattr(s.clusters, f), getattr(t.clusters, f)), f
+    o, d = random_rays(50, 25)
+    t0 = _t0(50)
+    for a, b in zip(_walk(s, o, d, t0), _walk(t, o, d, t0)):
+        assert torch.equal(a, b)
+
+
+def test_with_tree_leaves_are_the_real_clusters():
+    """Built over a paged flat set, the tree's leaves are its real clusters,
+    each once; padding clusters (inverted boxes) stay out."""
+    from pathtracing_tpu_torch.ops import clusters as tcl
+
+    rs = np.random.RandomState(26)
+    v0 = rs.rand(1500, 3).astype(np.float32) * 4.0
+    e = (rs.randn(2, 1500, 3) * 0.05).astype(np.float32)
+    cs = tcl.build_clusters(v0, e[0], e[1], np.zeros(1500, np.int32))[0]
+    flat, _, _ = tcl.build_pages(cs, 5)
+    real = np.nonzero((flat.aabb_min <= flat.aabb_max).all(axis=1))[0]
+    assert len(real) < flat.aabb_min.shape[0]
+    built = tcl.with_tree(flat._replace(node_box=None, node_meta=None,
+                                        oct_links=None))
+    leaves = built.node_meta[1][built.node_meta[1] >= 0]
+    assert sorted(leaves.tolist()) == real.tolist()
+    assert tcl.with_tree(flat) is flat

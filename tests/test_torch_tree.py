@@ -182,6 +182,24 @@ def test_trace_tree_torch_matches_flat_sweep(sets, name):
     assert 0 < walk["cluster_evals"] <= flat["cluster_evals"]
 
 
+@pytest.mark.parametrize("name", sorted(TRIS))
+def test_flat_walk_is_the_tree_walk_with_table_normals(sets, name):
+    """The flat closest hit's plain version and the tree walk share one
+    walk: the same t, slot, material and evaluations; only the normal's
+    source differs (the table against the winner's Woop w-row)."""
+    _, ct = sets[name]
+    o, d, t0 = (torch.as_tensor(a) for a in _rays(603, 10, name))
+    fs, ts = {}, {}
+    flat = tct.trace_flat_walk_torch(ct, o, d, t0, stats=fs)
+    tree = tct.trace_tree_torch(ct, o, d, t0, stats=ts)
+    for k in (0, 1, 3):
+        assert torch.equal(flat[k], tree[k])
+    assert fs == ts and fs["cluster_evals"] > 0
+    hit = flat[1] >= 0
+    assert torch.equal(flat[2][hit], tct.lookup_hit(ct, flat[1])[0][hit])
+    assert torch.allclose(flat[2], tree[2], atol=1e-5)
+
+
 def test_trace_tree_paged_torch_matches_trace_pallas_paged(paged):
     j, t = paged
     o, d, t0 = _rays(601, 4)
@@ -207,8 +225,9 @@ def test_tree_walks_accept_a_paged_flat_set(paged):
 
 
 @pytest.mark.parametrize("name", [
-    "trace_torch", "trace_paged_dnf_torch", "trace_paged_walk_torch",
-    "trace_tree_torch", "trace_tree_paged_torch", "occluded_torch",
+    "trace_torch", "trace_flat_walk_torch", "trace_paged_dnf_torch",
+    "trace_paged_walk_torch", "trace_tree_torch", "trace_tree_paged_torch",
+    "occluded_torch",
     "occluded_paged_dnf_torch", "occluded_tree_torch"])
 def test_needed_evals_bounds_every_visiting_order(paged, name):
     """``chip_smoke.needed_evals``, the count behind the traversal kernels'
