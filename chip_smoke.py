@@ -16,21 +16,23 @@ Phases, in order; any failure exits non-zero:
                  (1920x1080 camera rays, one bounce wave, and the NEE
                  shadow waves of both), with every 11th lane dead and a
                  ray count that is not a multiple of the block size; then
-                 on a random triangle soup past 1024 clusters (more than
-                 one shared-memory chunk of cluster boxes for the any
-                 hit's sweep). The closest hit, a walk of the set's
-                 cluster tree, is held bit for bit (t, slot, normal, mat)
-                 against its plain version ``trace_flat_walk_torch`` and
-                 under the tie contract against ``trace_torch`` (the JAX
-                 order);
+                 on a random triangle soup of 1,863 clusters. Both walk
+                 the set's cluster tree. The closest hit is held bit for
+                 bit (t, slot, normal, mat) against its plain version
+                 ``trace_flat_walk_torch`` and under the tie contract
+                 against ``trace_torch`` (the JAX order); the any hit
+                 equal to its plain version ``occluded_tree_torch`` and to
+                 ``occluded_torch`` (the JAX order);
                * the instanced traversal pair on the same four waves of
                  instanced_demo, once static with material overrides, once
                  with a motion set (a second transform per instance) at
                  per-ray random shutter times, once with the motion set
-                 and no time given (mid-shutter); then on
-                 instanced_demo(grid=19), 5,777 expanded clusters (six
-                 shared-memory chunks of boxes), on 262,157 rays. The
-                 closest hit is held bit for bit (t, slot, normal, mat);
+                 and no time given (mid-shutter); then on 262,157 rays of
+                 instanced_demo(grid=19), 5,777 expanded clusters in 362
+                 placements, and of instanced_demo(grid=33,
+                 subdivisions=0), 1,090 placements (two shared-memory
+                 chunks of placement boxes). The closest hit is held bit
+                 for bit (t, slot, normal, mat), the any hit equal;
                * the row gather against ``torch.index_select``, bit for
                  bit, for the many-light scene's (288, 24) packed table
                  and the 2,073,600 indices of a real light pick, and for
@@ -470,8 +472,9 @@ def tie_ok(ref, new, live):
 def check_occluded(kernel, plain, wave, chunk=PLAIN_CHUNK, sub=None,
                    reference=None, boxes=None):
     """An any-hit kernel against its plain version: occlusion equal on the
-    rays ``sub`` (default all), and equal to ``reference``'s
-    ``slot >= 0`` there when given. ``boxes`` as in ``check_trace``."""
+    rays ``sub`` (default all), and equal there to ``reference``'s result
+    when given: a closest hit's ``slot >= 0`` (``trace_torch``) or an any
+    hit's bool (``occluded_torch``). ``boxes`` as in ``check_trace``."""
     cap = wave[2]
     kernel(*wave)                                # warm-up launch
     ms, occ_k = cuda_ms(lambda: kernel(*wave), KERNEL_REPS)
@@ -489,8 +492,9 @@ def check_occluded(kernel, plain, wave, chunk=PLAIN_CHUNK, sub=None,
     if sub is not None:
         res["plain_rays"] = int(sub.shape[0])
     if reference is not None:
-        res["tie_mismatches"] = int(
-            (occ_held != (reference(*rays)[1] >= 0)).sum())
+        ref = reference(*rays)
+        ref_occ = ref[1] >= 0 if isinstance(ref, tuple) else ref
+        res["tie_mismatches"] = int((occ_held != ref_occ).sum())
     if boxes is not None:
         res["needed_evals"] = needed_evals(*boxes, wave, cap,
                                            occluded=occ_k)
@@ -499,9 +503,9 @@ def check_occluded(kernel, plain, wave, chunk=PLAIN_CHUNK, sub=None,
 
 def flat_fns(clusters):
     """(closest-hit kernel, its plain version, any-hit kernel, its plain
-    version, the closest hit's index-order oracle ``trace_torch`` in
-    ``PLAIN_CHUNK`` pieces) of a flat ClusterSet, as functions of a wave's
-    arrays."""
+    version, the index-order oracles ``trace_torch`` and ``occluded_torch``
+    in ``PLAIN_CHUNK`` pieces) of a flat ClusterSet, as functions of a
+    wave's arrays."""
     from pathtracing_tpu_torch.ops import cluster_trace as ct
 
     return (
@@ -509,10 +513,13 @@ def flat_fns(clusters):
         lambda o, d, t, stats: ct.trace_flat_walk_torch(clusters, o, d, t,
                                                         stats=stats),
         lambda o, d, t: ct.occluded(clusters, o, d, t),
-        lambda o, d, t, stats: ct.occluded_torch(clusters, o, d, t,
-                                                 stats=stats),
+        lambda o, d, t, stats: ct.occluded_tree_torch(clusters, o, d, t,
+                                                      stats=stats),
         lambda o, d, t: in_chunks(
             lambda *a, stats: ct.trace_torch(clusters, *a), (o, d, t), {},
+            PLAIN_CHUNK),
+        lambda o, d, t: in_chunks(
+            lambda *a, stats: ct.occluded_torch(clusters, *a), (o, d, t), {},
             PLAIN_CHUNK),
     )
 
@@ -540,8 +547,8 @@ def report(kname, res, failures, **extra):
     if res["mismatches"] or res.get("tie_mismatches"):
         failures.append(f"{kname} {extra}: {res['mismatches']} rays "
                         f"against the plain version, "
-                        f"{res.get('tie_mismatches', 0)} against "
-                        "trace_torch")
+                        f"{res.get('tie_mismatches', 0)} against the "
+                        "JAX-order oracle")
 
 
 def check_gather(table, idx, label, failures, timed=False):
@@ -1049,7 +1056,7 @@ def run() -> dict:
     failures = []
     waves = make_waves(scene, camera, config)
     results = {"trace": {}, "occluded": {}}
-    tk, tp, ok, op, oracle = flat_fns(scene.clusters)
+    tk, tp, ok, op, oracle, occ_oracle = flat_fns(scene.clusters)
     boxes = (scene.clusters.aabb_min, scene.clusters.aabb_max)
     for wname in ("camera", "bounce"):
         res = check_trace(tk, tp, waves[wname], strict=True, normal_tol=0.0,
@@ -1057,19 +1064,21 @@ def run() -> dict:
         results["trace"][wname] = res
         report("trace_dnf", res, failures, wave=wname)
     for wname in ("camera_shadow", "bounce_shadow"):
-        res = check_occluded(ok, op, waves[wname], boxes=boxes)
+        res = check_occluded(ok, op, waves[wname], reference=occ_oracle,
+                             boxes=boxes)
         results["occluded"][wname] = res
         report("occluded_dnf", res, failures, wave=wname)
     del waves
-    # A scene past one shared-memory chunk of boxes (1024 clusters), which
-    # the flagship (938) never reaches: both kernels on a triangle soup.
+    # A set of more clusters, with a less regular tree, than the flagship:
+    # both kernels on a triangle soup.
     soup_cl, soup_waves = make_soup()
-    tk, tp, ok, op, oracle = flat_fns(soup_cl)
+    tk, tp, ok, op, oracle, occ_oracle = flat_fns(soup_cl)
     n_soup = int(soup_cl.woop.shape[0])
     report("trace_dnf", check_trace(tk, tp, soup_waves["soup"], strict=True,
                                     normal_tol=0.0, reference=oracle),
            failures, wave="soup", clusters=n_soup)
-    report("occluded_dnf", check_occluded(ok, op, soup_waves["soup_shadow"]),
+    report("occluded_dnf", check_occluded(ok, op, soup_waves["soup_shadow"],
+                                          reference=occ_oracle),
            failures, wave="soup_shadow", clusters=n_soup)
     del soup_cl, soup_waves
 
@@ -1112,23 +1121,31 @@ def run() -> dict:
             report("occluded_dnf_inst", res, failures, variant=vname,
                    wave=wname)
     del waves, motion_scene
-    # Several shared-memory chunks of expanded boxes: the 19x19 field
-    # (5,777 expanded clusters; the kernels' budget is 8,192).
-    big_scene, _ = scenes.instanced_demo(grid=19, device=DEVICE)
-    big_exp = int(big_scene.instances.cmap.shape[0])
+    # Bigger fields: the 19x19 field (5,777 expanded clusters in 362
+    # placements; the kernels' budget is 8,192), and a 33x33 field of
+    # one-cluster icosahedra, 1,090 placements: two shared-memory chunks
+    # of placement boxes, so a finished warp must still reach the second
+    # chunk's barriers.
     pix = torch.randperm(WIDTH * HEIGHT, generator=gen)[:(1 << 18) + 13]
-    big_waves = make_waves(big_scene, inst_camera, inst_config,
-                           pix=pix.to(DEVICE), bounce=False)
-    tk, tp, ok, op = inst_fns(big_scene.clusters, big_scene.instances)
-    report("trace_dnf_inst",
-           check_trace(tk, tp, big_waves["camera"], chunk=INST_PLAIN_CHUNK,
-                       strict=True, normal_tol=0.0),
-           failures, wave="grid19", expanded=big_exp)
-    report("occluded_dnf_inst",
-           check_occluded(ok, op, big_waves["camera_shadow"],
-                          chunk=INST_PLAIN_CHUNK),
-           failures, wave="grid19_shadow", expanded=big_exp)
-    del big_scene, big_waves
+    for label, grid, subdiv in (("grid19", 19, 3), ("grid33", 33, 0)):
+        big_scene, _ = scenes.instanced_demo(grid=grid, subdivisions=subdiv,
+                                             device=DEVICE)
+        big_inst = big_scene.instances
+        sizes = {"expanded": int(big_inst.cmap.shape[0]),
+                 "placements": int(big_inst.inst_first.shape[0]) - 1}
+        big_waves = make_waves(big_scene, inst_camera, inst_config,
+                               pix=pix.to(DEVICE), bounce=False)
+        tk, tp, ok, op = inst_fns(big_scene.clusters, big_inst)
+        report("trace_dnf_inst",
+               check_trace(tk, tp, big_waves["camera"],
+                           chunk=INST_PLAIN_CHUNK, strict=True,
+                           normal_tol=0.0),
+               failures, wave=label, **sizes)
+        report("occluded_dnf_inst",
+               check_occluded(ok, op, big_waves["camera_shadow"],
+                              chunk=INST_PLAIN_CHUNK),
+               failures, wave=label + "_shadow", **sizes)
+        del big_scene, big_inst, big_waves
 
     t = phase("kernel vs plain: gather")
     lights_scene, lights_cam_cfg = scenes.many_lights_demo(device=DEVICE)
@@ -1241,8 +1258,17 @@ def run() -> dict:
             TPU_SOURCE + ":1266", launches["occluded"], results["occluded"],
             "camera_shadow",
             lambda r: bound_ms(r["needed_evals"], r["rays"], n_clusters,
-                               29)),
+                               29),
+            plain="occluded_tree_torch", vs_occluded_torch="equal",
+            design=WALK_DESIGN + " over the flat set's tree, any hit"),
     ]
+    inst_designs = {
+        "trace": "two-level sweep: placement boxes culled first, "
+                 "warp-cooperative pairs (warp_closest_group)",
+        "occluded": "two-level sweep: placement boxes culled first, "
+                    "warp-cooperative pairs (warp_any_group), a lane "
+                    "retired at its first occluder",
+    }
     for key, name, line, ray_bytes in (
         ("trace", "trace_dnf_inst", 1836, 52),
         ("occluded", "occluded_dnf_inst", 1855, 29),
@@ -1255,7 +1281,8 @@ def run() -> dict:
             inst_results[key], main_inst[key],
             lambda r, rb=ray_bytes: bound_ms(
                 r["needed_evals"], r["rays"], n_proto, rb, n_exp=n_exp,
-                motion=r["motion"])))
+                motion=r["motion"]),
+            design=inst_designs[key]))
     kernels.append({
         "name": "gather_rows", "route": "cuda", "source": src + "pgather.cu",
         "kernel": "gather_rows_kernel",

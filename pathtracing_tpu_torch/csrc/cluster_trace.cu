@@ -39,12 +39,16 @@
 // for bit. Against the index-order sweep (trace_torch, the JAX order) t is
 // equal bit for bit and the slot too, except where two clusters tie in t.
 //
-// Design of the any hit (occluded_dnf_kernel): one thread per ray, blocks
-// of 128. Cluster boxes are staged in shared memory in chunks of 1024 (24
-// KB); the warp sweeps them in index order, each lane slab-testing against
-// its cap, and skips a cluster with __any_sync when no lane needs it. A
-// lane that pierces a box tests its 128 triangles alone and retires at its
-// first hit; a warp stops once every lane is occluded or dead.
+// Design of the any hit (occluded_dnf_kernel). The first Hopper design
+// kept the TPU's sweep: every cluster box in index order for every warp,
+// a pierced cluster's 128 triangles tested on one lane. Here the any hit
+// takes the closest hit's walk of the same tree (warp_walk<kPaged =
+// false, kAnyHit = true>): the cap stays fixed, and a lane retires at its
+// first occluding cluster. Whether some triangle lies strictly inside
+// (T_MIN, cap) does not depend on the order of visits, so the bool equals
+// the plain walk (occluded_tree_torch) and the index-order sweep
+// (occluded_torch, the JAX order) alike. The tree's leaves are the set's
+// real clusters only.
 //
 // Built with --fmad=false so every multiply and add rounds as in the plain
 // torch versions, which makes the card-side comparison exact.
@@ -89,15 +93,15 @@ trace_dnf_kernel(const float* __restrict__ origin,
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, 2)
 occluded_dnf_kernel(const float* __restrict__ origin,
                     const float* __restrict__ direction,
                     const float* __restrict__ t_max,
-                    const float* __restrict__ aabb_min,
-                    const float* __restrict__ aabb_max,
-                    const float* __restrict__ woop, int n_rays,
-                    int n_clusters, bool* __restrict__ occ_out) {
-  __shared__ float box[6][kBoxChunk];
+                    const float* __restrict__ woop,
+                    const float* __restrict__ node_box,
+                    const int* __restrict__ node_meta,
+                    const int* __restrict__ links, int n_rays, int n_nodes,
+                    bool* __restrict__ occ_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = i < n_rays;
   Ray r = {};
@@ -106,28 +110,10 @@ occluded_dnf_kernel(const float* __restrict__ origin,
     r = load_ray(origin, direction, i);
     cap = t_max[i];
   }
-  bool pending = in_range && cap > 0.0f;  // live and not yet occluded
+  int unused_slot = -1;
   bool occ = false;
-
-  if (__syncthreads_or(pending)) {
-    for (int c0 = 0; c0 < n_clusters; c0 += kBoxChunk) {
-      const int n = min(kBoxChunk, n_clusters - c0);
-      __syncthreads();
-      stage_boxes(box, aabb_min, aabb_max, c0, n);
-      __syncthreads();
-      for (int k = 0; k < n; ++k) {
-        if (!__any_sync(kFull, pending)) break;  // whole warp finished
-        const bool h = pending && slab(box, k, r, cap);
-        if (!__any_sync(kFull, h)) continue;
-        if (h && any_in_cluster(
-                     woop + static_cast<size_t>(c0 + k) * 4 * kWoopCols, r,
-                     cap)) {
-          occ = true;
-          pending = false;
-        }
-      }
-    }
-  }
+  warp_walk<false, true>(woop, node_box, node_meta, links, 1, 0, n_nodes,
+                         in_range && cap > 0.0f, r, cap, unused_slot, occ);
   if (in_range) occ_out[i] = occ;
 }
 
@@ -151,15 +137,16 @@ int ptpu_trace_dnf(const float* origin, const float* direction,
 }
 
 int ptpu_occluded_dnf(const float* origin, const float* direction,
-                      const float* t_max, const float* aabb_min,
-                      const float* aabb_max, const float* woop, int n_rays,
-                      int n_clusters, bool* occ_out, void* stream) {
+                      const float* t_max, const float* woop,
+                      const float* node_box, const int* node_meta,
+                      const int* links, int n_rays, int n_nodes,
+                      bool* occ_out, void* stream) {
   if (n_rays <= 0) return 0;
   const int grid = (n_rays + kBlock - 1) / kBlock;
   occluded_dnf_kernel<<<grid, kBlock, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      origin, direction, t_max, aabb_min, aabb_max, woop, n_rays,
-      n_clusters, occ_out);
+      origin, direction, t_max, woop, node_box, node_meta, links, n_rays,
+      n_nodes, occ_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -52,10 +52,20 @@
 // once more for the winner in the epilogue, from the same inputs in the
 // same order, so it gives the same bits both times.
 //
-// Design of the any hit (occluded_dnf_inst_kernel): one thread per ray,
-// all expanded boxes staged in shared memory 1024 at a time (24 KB), a
-// warp skipping an expanded cluster no lane pierces, a lane that pierces
-// one testing its 128 triangles alone and retiring at its first hit.
+// Design of the any hit (occluded_dnf_inst_kernel). The first Hopper
+// design swept every expanded box for every warp and tested a pierced
+// pair's 128 triangles on one lane. Here the any hit takes the closest
+// hit's two levels with its cap fixed: placement boxes staged in shared
+// memory, a warp entering a placement only where a pending lane (live and
+// not yet occluded) pierces its box, the placement's expanded boxes
+// slab-tested from global memory, and each pierced pair evaluated by the
+// whole warp (warp_any_group). A lane retires at its first occluding pair,
+// and a warp leaves a chunk of placements once no lane is pending; every
+// warp still reaches each chunk's two barriers. The culling is exact as
+// above, so the kernel evaluates a subset of occluded_inst_torch's pairs:
+// every pair that could occlude a ray before its first occluder. Whether
+// some triangle lies strictly inside (T_MIN, cap) does not depend on the
+// order of visits, so the bool equals the index-order sweep's.
 //
 // Formula order follows _ray_to_object and _lerp_affine_inverse of
 // ops/cluster_trace.py term by term, and the build uses --fmad=false, so
@@ -265,10 +275,14 @@ occluded_dnf_inst_kernel(const float* __restrict__ origin,
                          const float* __restrict__ xform,
                          const float* __restrict__ fw0,
                          const float* __restrict__ fw1,
+                         const int* __restrict__ inst_first,
+                         const float* __restrict__ inst_min,
+                         const float* __restrict__ inst_max,
                          const float* __restrict__ woop, int n_rays,
-                         int n_exp, bool* __restrict__ occ_out) {
+                         int n_inst, bool* __restrict__ occ_out) {
   __shared__ float box[6][kBoxChunk];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int warp_lane = threadIdx.x % kWarp;
   const bool in_range = i < n_rays;
   Ray r = {};
   float cap = 0.0f;
@@ -282,26 +296,39 @@ occluded_dnf_inst_kernel(const float* __restrict__ origin,
   bool occ = false;
 
   if (__syncthreads_or(pending)) {
-    for (int c0 = 0; c0 < n_exp; c0 += kBoxChunk) {
-      const int n = min(kBoxChunk, n_exp - c0);
+    for (int p0 = 0; p0 < n_inst; p0 += kBoxChunk) {
+      const int n = min(kBoxChunk, n_inst - p0);
       __syncthreads();
-      stage_boxes(box, aabb_min, aabb_max, c0, n);
+      stage_boxes(box, inst_min, inst_max, p0, n);
       __syncthreads();
+      // Only this loop may end early: every warp must reach the next
+      // chunk's barriers.
       for (int k = 0; k < n; ++k) {
         if (!__any_sync(kFull, pending)) break;  // whole warp finished
-        const bool h = pending && slab(box, k, r, cap);
-        if (!__any_sync(kFull, h)) continue;
-        if (h) {
-          const int e = c0 + k;
-          float xf[12];
-          load_xform<kMotion>(xf, xform, fw0, fw1, e, tt);
-          const Ray q = to_object(xf, r);
-          const float* w =
-              woop + static_cast<size_t>(__ldg(cmap + e)) * 4 * kWoopCols;
-          if (any_in_cluster(w, q, cap)) {
+        const bool in = pending && slab(box, k, r, cap);
+        if (!__any_sync(kFull, in)) continue;
+        const int e_end = __ldg(inst_first + p0 + k + 1);
+        for (int e = __ldg(inst_first + p0 + k); e < e_end; ++e) {
+          const bool h = in && pending &&
+                         slab_test(aabb_min + 3 * e, aabb_max + 3 * e, 1, r,
+                                   cap);
+          const unsigned group = __ballot_sync(kFull, h);
+          if (group == 0) continue;
+          Ray q = {};
+          if (h) {
+            float xf[12];
+            load_xform<kMotion>(xf, xform, fw0, fw1, e, tt);
+            q = to_object(xf, r);
+          }
+          const int p = __ldg(cmap + e);
+          WarpCluster wc;
+          load_warp_cluster(wc, woop + static_cast<size_t>(p) * 4 * kWoopCols,
+                            warp_lane);
+          if (warp_any_group(wc, group, q, cap, warp_lane)) {
             occ = true;
             pending = false;
           }
+          if (!__any_sync(kFull, pending)) break;
         }
       }
     }
@@ -316,7 +343,7 @@ extern "C" {
 // `time`, `fw0` and `fw1` are all null (static instances) or all given
 // (motion); `imat` may be null (no overrides). `inst_first` (n_inst + 1)
 // bounds each placement's run of expanded clusters, `inst_min` /
-// `inst_max` (n_inst, 3) its box.
+// `inst_max` (n_inst, 3) its box; both kernels take them.
 int ptpu_trace_dnf_inst(const float* origin, const float* direction,
                         const float* t_init, const float* time,
                         const float* aabb_min, const float* aabb_max,
@@ -349,19 +376,23 @@ int ptpu_occluded_dnf_inst(const float* origin, const float* direction,
                            const float* aabb_min, const float* aabb_max,
                            const int* cmap, const float* xform,
                            const float* fw0, const float* fw1,
-                           const float* woop, int n_rays, int n_exp,
-                           bool* occ_out, void* stream) {
+                           const int* inst_first, const float* inst_min,
+                           const float* inst_max, const float* woop,
+                           int n_rays, int n_inst, bool* occ_out,
+                           void* stream) {
   if (n_rays <= 0) return 0;
   const int grid = (n_rays + kBlock - 1) / kBlock;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fw0 != nullptr) {
     occluded_dnf_inst_kernel<true><<<grid, kBlock, 0, s>>>(
         origin, direction, t_max, time, aabb_min, aabb_max, cmap, xform,
-        fw0, fw1, woop, n_rays, n_exp, occ_out);
+        fw0, fw1, inst_first, inst_min, inst_max, woop, n_rays, n_inst,
+        occ_out);
   } else {
     occluded_dnf_inst_kernel<false><<<grid, kBlock, 0, s>>>(
         origin, direction, t_max, time, aabb_min, aabb_max, cmap, xform,
-        fw0, fw1, woop, n_rays, n_exp, occ_out);
+        fw0, fw1, inst_first, inst_min, inst_max, woop, n_rays, n_inst,
+        occ_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

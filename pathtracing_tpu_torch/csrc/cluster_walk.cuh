@@ -1,6 +1,6 @@
-// The warp-cooperative cluster-tree walker, shared by the closest-hit
-// kernels of flat scenes (cluster_trace.cu), of unpaged scenes past the
-// flat budget (cluster_trace_tree.cu) and by both kernels of paged scenes
+// The warp-cooperative cluster-tree walker, shared by both kernels of flat
+// scenes (cluster_trace.cu), the closest hit of unpaged scenes past the
+// flat budget (cluster_trace_tree.cu) and both kernels of paged scenes
 // (cluster_trace_paged.cu).
 //
 // A tree is a threaded binary tree over cluster boxes (ops/clusters.py
@@ -50,9 +50,65 @@ __device__ __forceinline__ float page_entry(const float* root,
   return (tn <= tf && tf > kTMin) ? tn : kBig;
 }
 
+// One step of a lane's walk: choose its next page (kPaged, between
+// pages), or slab-test its next node and move along its octant's links.
+// Sets `held` to the global id of a pierced leaf, or `walking` to false
+// when the lane has no node left to visit.
+template <bool kPaged>
+__device__ __forceinline__ void walk_step(
+    const float* __restrict__ node_box, const int* __restrict__ node_meta,
+    const int* __restrict__ links, int n_pages, int page_size,
+    int page_nodes, const Ray& r, int oct, float best, int& g, int& n,
+    float& last_e, int& last_g, bool& walking, int& held) {
+  if (kPaged && g < 0) {
+    // The next page in (entry, index) order after the last one.
+    float next_e = __int_as_float(0x7f800000);  // +inf
+    int next_g = -1;
+    for (int p = 0; p < n_pages; ++p) {
+      const float e = page_entry(
+          node_box + static_cast<size_t>(p) * 6 * page_nodes, page_nodes, r);
+      const bool later = e > last_e || (e == last_e && p > last_g);
+      if (later && e < next_e) {
+        next_e = e;
+        next_g = p;
+      }
+    }
+    // Pages come nearest first: none after this one can be entered.
+    if (next_g < 0 || !(next_e < best)) {
+      walking = false;
+      return;
+    }
+    g = next_g;
+    n = 0;
+    last_e = next_e;
+    last_g = next_g;
+  }
+  if (n >= page_nodes) {
+    if (kPaged) {
+      g = -1;
+    } else {
+      walking = false;
+    }
+    return;
+  }
+  const size_t base = static_cast<size_t>(g) * page_nodes;
+  const bool hit = slab_strided(node_box + 6 * base + n, page_nodes, r, best);
+  const int cid = __ldg(node_meta + 2 * base + page_nodes + n);
+  n = __ldg(links + 16 * base +
+            static_cast<size_t>(hit ? oct : 8 + oct) * page_nodes + n);
+  if (hit && cid >= 0) held = kPaged ? g * page_size + cid : cid;
+}
+
 // The warp walks its lanes' rays through the tree or pages (see the note
 // above). Closest hit: updates best and best_slot. kAnyHit: best is the
 // fixed cap and `occluded` is set at the first hit.
+//
+// The warp steps together: the stepping loop ends on a warp vote, once
+// every lane holds a leaf or has finished. A loop that each lane left on
+// its own condition (while (walking) { ... break; }) let ptxas (CUDA
+// 12.8, -O3) fold it into the outer loop for the any hit of a flat tree,
+// so that the ballot below ran with only the lanes that had just found a
+// leaf and the others' occluders were missed.
 template <bool kPaged, bool kAnyHit>
 __device__ __forceinline__ void warp_walk(
     const float* __restrict__ woop, const float* __restrict__ node_box,
@@ -68,48 +124,11 @@ __device__ __forceinline__ void warp_walk(
   int last_g = -1;              // (every page comes after these)
   for (;;) {
     int held = -1;              // global id of the leaf this lane holds
-    while (walking) {
-      if (kPaged && g < 0) {
-        // The next page in (entry, index) order after the last one.
-        float next_e = __int_as_float(0x7f800000);  // +inf
-        int next_g = -1;
-        for (int p = 0; p < n_pages; ++p) {
-          const float e = page_entry(
-              node_box + static_cast<size_t>(p) * 6 * page_nodes, page_nodes,
-              r);
-          const bool later = e > last_e || (e == last_e && p > last_g);
-          if (later && e < next_e) {
-            next_e = e;
-            next_g = p;
-          }
-        }
-        // Pages come nearest first: none after this one can be entered.
-        if (next_g < 0 || !(next_e < best)) {
-          walking = false;
-          break;
-        }
-        g = next_g;
-        n = 0;
-        last_e = next_e;
-        last_g = next_g;
-      }
-      if (n >= page_nodes) {
-        if (!kPaged) {
-          walking = false;
-          break;
-        }
-        g = -1;
-        continue;
-      }
-      const size_t base = static_cast<size_t>(g) * page_nodes;
-      const bool hit = slab_strided(node_box + 6 * base + n, page_nodes, r,
-                                    best);
-      const int cid = __ldg(node_meta + 2 * base + page_nodes + n);
-      n = __ldg(links + 16 * base +
-                static_cast<size_t>(hit ? oct : 8 + oct) * page_nodes + n);
-      if (hit && cid >= 0) {
-        held = kPaged ? g * page_size + cid : cid;
-        break;
+    while (__any_sync(kFull, walking && held < 0)) {
+      if (walking && held < 0) {
+        walk_step<kPaged>(node_box, node_meta, links, n_pages, page_size,
+                          page_nodes, r, oct, best, g, n, last_e, last_g,
+                          walking, held);
       }
     }
     const unsigned holders = __ballot_sync(kFull, held >= 0);

@@ -554,11 +554,12 @@ def _sphere_pass(scene: Scene, origin, direction):
 
 _ROUTES = {
     # (query, route): (plain version, dispatching kernel wrapper)
-    # The flat closest hit walks the set's cluster tree in both versions;
-    # trace_torch (the JAX order) is the oracle the tests hold it to.
+    # The flat pair walks the set's cluster tree in both versions;
+    # trace_torch and occluded_torch (the JAX order) are the oracles the
+    # tests hold them to.
     ("trace", "flat"): (cluster_trace.trace_flat_walk_torch,
                         cluster_trace.trace),
-    ("occluded", "flat"): (cluster_trace.occluded_torch,
+    ("occluded", "flat"): (cluster_trace.occluded_tree_torch,
                            cluster_trace.occluded),
     ("trace", "instanced"): (cluster_trace.trace_inst_torch,
                              cluster_trace.trace_inst),

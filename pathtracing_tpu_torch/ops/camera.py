@@ -42,11 +42,11 @@ def build_camera(cfg: CameraConfig, aspect: float, device=None) -> Camera:
     if cfg.projection != "pinhole":
         raise NotImplementedError(
             f"projection {cfg.projection!r} is not ported yet (ROADMAP "
-            "queue A, left from item 6)"
+            "queue A item 20)"
         )
     if cfg.motion_position is not None or cfg.motion_look_at is not None:
         raise NotImplementedError(
-            "camera motion blur is not ported yet (ROADMAP queue A item 14)"
+            "camera motion blur is not ported yet (ROADMAP queue A item 20)"
         )
     position = np.asarray(cfg.position, np.float32)
     look_at = np.asarray(cfg.look_at, np.float32)

@@ -23,8 +23,10 @@ takes the plain version, a CUDA tensor launches the hand-written kernel in
 kernel's visiting order, normal and material from the tables);
 ``trace_torch``, a torch port of the JAX package's ``trace_jax`` index-order
 sweep, is the oracle it is held to: t bit for bit, slot equal or t tied.
-``occluded`` sweeps the boxes in index order (plain version
-``occluded_torch``).
+``occluded`` walks the same tree with the cap fixed (plain version
+``occluded_tree_torch``; a set without a tree raises, as for ``trace``);
+``occluded_torch``, the JAX package's index-order sweep, is its oracle.
+Occlusion does not depend on the order of visits, so the two are equal.
 
 Instanced scenes (``ops.clusters.InstanceSet``) go through
 
@@ -36,7 +38,9 @@ boxes: ``slot`` is a PROTOTYPE slot, ``normal`` is in world space, ``mat``
 carries the per-instance override, and ``time`` is the per-ray shutter time
 of a motion-blurred set (mid-shutter when None; ignored by static sets).
 Plain versions ``trace_inst_torch`` / ``occluded_inst_torch`` (a port of
-``trace_jax_inst``); kernels in ``csrc/cluster_trace_inst.cu``.
+``trace_jax_inst``); kernels in ``csrc/cluster_trace_inst.cu``. Both
+kernels cull whole placements by ``InstanceSet.inst_min`` / ``inst_max``
+first, exactly, so the index-order sweeps stay their plain versions.
 
 Scenes past ``DNF_MAX_CLUSTERS`` (``ops.clusters`` trees and pages) go
 through
@@ -247,7 +251,8 @@ def trace_torch(clusters, origin, direction, t_init, stats=None):
 def occluded_torch(clusters, origin, direction, t_max, stats=None):
     """Plain any-hit sweep: equal to ``trace_torch(..., t_max)[1] >= 0``
     (the JAX package's any-hit oracle), with lanes retired once a hit is
-    found. ``stats`` as in ``trace_torch``."""
+    found. The oracle of the flat any hit, whose plain version is the walk
+    ``occluded_tree_torch``. ``stats`` as in ``trace_torch``."""
     n_clusters = clusters.woop.shape[0]
     cap = t_max.to(torch.float32)
     occ = torch.zeros(origin.shape[0], dtype=torch.bool, device=origin.device)
@@ -438,7 +443,8 @@ def trace_flat_walk_torch(clusters, origin, direction, t_init, stats=None):
 def occluded_tree_torch(clusters, origin, direction, t_max, stats=None):
     """Plain per-ray cluster-tree walk, any hit: equal to
     ``trace_torch(..., t_max)[1] >= 0``, each ray retired at its first
-    hit. ``stats`` as in ``trace_tree_torch``."""
+    hit. The plain version of the flat any hit and of the tree route's.
+    ``stats`` as in ``trace_tree_torch``."""
     cap = t_max.to(torch.float32)
     occ = torch.zeros(origin.shape[0], dtype=torch.bool, device=origin.device)
     counts = _Counts(stats)
@@ -724,9 +730,9 @@ _SIGNATURES = {
     # oct_links, n_rays, n_nodes, t_out, slot_out, normal_out, mat_out,
     # stream
     "ptpu_trace_dnf": [_P] * 9 + [_I, _I] + [_P] * 5,
-    # origin, direction, t_max, aabb_min, aabb_max, woop, n_rays,
-    # n_clusters, occ_out, stream
-    "ptpu_occluded_dnf": [_P] * 6 + [_I, _I] + [_P] * 2,
+    # origin, direction, t_max, woop, node_box, node_meta, oct_links,
+    # n_rays, n_nodes, occ_out, stream
+    "ptpu_occluded_dnf": [_P] * 7 + [_I, _I] + [_P] * 2,
 }
 
 
@@ -736,8 +742,9 @@ _INST_SIGNATURES = {
     # n_rays, n_inst, t_out, slot_out, normal_out, mat_out, stream
     "ptpu_trace_dnf_inst": [_P] * 17 + [_I, _I] + [_P] * 5,
     # origin, direction, t_max, time, aabb_min, aabb_max, cmap, xform, fw0,
-    # fw1, woop, n_rays, n_exp, occ_out, stream
-    "ptpu_occluded_dnf_inst": [_P] * 11 + [_I, _I] + [_P] * 2,
+    # fw1, inst_first, inst_min, inst_max, woop, n_rays, n_inst, occ_out,
+    # stream
+    "ptpu_occluded_dnf_inst": [_P] * 14 + [_I, _I] + [_P] * 2,
 }
 
 
@@ -783,21 +790,6 @@ def _checked(t, dtype, shape, name):
     return t.contiguous()
 
 
-def _cluster_args(clusters, device):
-    c = clusters.woop.shape[0]
-    k = CLUSTER_SIZE
-    tables = (
-        _checked(clusters.aabb_min, torch.float32, (c, 3), "aabb_min"),
-        _checked(clusters.aabb_max, torch.float32, (c, 3), "aabb_max"),
-        _checked(clusters.woop, torch.float32, (c, 4, 3 * k), "woop"),
-    )
-    for t in tables:
-        if t.device != device:
-            raise ValueError("cluster tables and rays lie on different "
-                             f"devices ({t.device} vs {device})")
-    return c, tables
-
-
 def _ray_args(origin, direction, t_cap, cap_name):
     r = origin.shape[0]
     return r, (
@@ -836,20 +828,22 @@ def trace(clusters, origin, direction, t_init):
 
 
 def occluded(clusters, origin, direction, t_max):
-    """Any-hit occlusion (see the module contract). CPU tensors take
-    ``occluded_torch``; CUDA tensors launch ``occluded_dnf_kernel``."""
-    if origin.device.type == "cpu":
-        return occluded_torch(clusters, origin, direction, t_max)
+    """Any-hit occlusion (see the module contract) by a walk of the flat
+    set's cluster tree; a set without a tree raises. CPU tensors take
+    ``occluded_tree_torch``; CUDA tensors launch ``occluded_dnf_kernel``."""
+    dev = origin.device
+    if dev.type == "cpu":
+        return occluded_tree_torch(clusters, origin, direction, t_max)
     r, rays = _ray_args(origin, direction, t_max, "t_max")
-    c, (bmin, bmax, woop) = _cluster_args(clusters, origin.device)
-    occ = torch.empty(r, dtype=torch.bool, device=origin.device)
+    n, *tree = _tree_args(clusters, dev)
+    woop = _hit_tables(clusters, dev)[0]
+    occ = torch.empty(r, dtype=torch.bool, device=dev)
     if r == 0:
         return occ
-    lib = _library()
-    stream = torch.cuda.current_stream(origin.device).cuda_stream
-    err = lib.ptpu_occluded_dnf(
-        *(x.data_ptr() for x in rays), bmin.data_ptr(), bmax.data_ptr(),
-        woop.data_ptr(), r, c, occ.data_ptr(), stream,
+    err = _library().ptpu_occluded_dnf(
+        *(x.data_ptr() for x in rays), woop.data_ptr(),
+        *(x.data_ptr() for x in tree), r, n, occ.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "occluded_dnf_kernel")
     LAUNCHES["occluded"] += 1
@@ -865,8 +859,8 @@ def _same_device(tensors, device):
 
 def _inst_args(clusters, inst, r, time, device, with_imat):
     """Checked, contiguous kernel operands of an instanced query:
-    (n_exp, per-ray time or None, (aabb_min, aabb_max, cmap, xform), imat
-    or None, (fw0, fw1) or (None, None), woop)."""
+    (per-ray time or None, (aabb_min, aabb_max, cmap, xform), imat or None,
+    (fw0, fw1) or (None, None), woop)."""
     ce = inst.cmap.shape[0]
     c = clusters.woop.shape[0]
     tables = (
@@ -887,7 +881,7 @@ def _inst_args(clusters, inst, r, time, device, with_imat):
     woop = _checked(clusters.woop, torch.float32, (c, 4, 3 * CLUSTER_SIZE),
                     "woop")
     _same_device((*tables, imat, *motion, woop, tt), device)
-    return ce, tt, tables, imat, motion, woop
+    return tt, tables, imat, motion, woop
 
 
 def _ptr(t):
@@ -896,7 +890,8 @@ def _ptr(t):
 
 def _placement_args(inst, device):
     """Checked (n_inst, (inst_first, inst_min, inst_max)) of an instance
-    set: the placement runs and boxes of the closest-hit kernel."""
+    set: the placement runs and boxes that both instanced kernels cull
+    by."""
     if inst.inst_first is None:
         raise ValueError("this InstanceSet carries no placement boxes "
                          "(ops.clusters.placement_boxes)")
@@ -923,8 +918,8 @@ def trace_inst(clusters, inst, origin, direction, t_init, time=None):
         return trace_inst_torch(clusters, inst, origin, direction, t_init,
                                 time=time)
     r, rays = _ray_args(origin, direction, t_init, "t_init")
-    _, tt, tables, imat, motion, woop = _inst_args(clusters, inst, r, time,
-                                                   dev, with_imat=True)
+    tt, tables, imat, motion, woop = _inst_args(clusters, inst, r, time,
+                                                dev, with_imat=True)
     n_inst, places = _placement_args(inst, dev)
     c = woop.shape[0]
     normal_tab = _checked(clusters.normal, torch.float32,
@@ -955,7 +950,10 @@ def occluded_inst(clusters, inst, origin, direction, t_max, time=None):
     """Instanced any-hit occlusion (see the module contract); never reads
     the material override. An empty instance set occludes nothing. CPU
     tensors take ``occluded_inst_torch``; CUDA tensors launch
-    ``occluded_dnf_inst_kernel``."""
+    ``occluded_dnf_inst_kernel``, which culls whole placements as
+    ``trace_inst`` does and retires a lane at its first occluder (the same
+    bool as ``occluded_inst_torch``: occlusion does not depend on the order
+    of visits)."""
     r = origin.shape[0]
     dev = origin.device
     if inst.cmap.shape[0] == 0:
@@ -964,8 +962,9 @@ def occluded_inst(clusters, inst, origin, direction, t_max, time=None):
         return occluded_inst_torch(clusters, inst, origin, direction, t_max,
                                    time=time)
     r, rays = _ray_args(origin, direction, t_max, "t_max")
-    ce, tt, tables, _, motion, woop = _inst_args(clusters, inst, r, time,
-                                                 dev, with_imat=False)
+    tt, tables, _, motion, woop = _inst_args(clusters, inst, r, time, dev,
+                                             with_imat=False)
+    n_inst, places = _placement_args(inst, dev)
     occ = torch.empty(r, dtype=torch.bool, device=dev)
     if r == 0:
         return occ
@@ -974,7 +973,8 @@ def occluded_inst(clusters, inst, origin, direction, t_max, time=None):
     err = lib.ptpu_occluded_dnf_inst(
         *(x.data_ptr() for x in rays), _ptr(tt),
         *(x.data_ptr() for x in tables), _ptr(motion[0]), _ptr(motion[1]),
-        woop.data_ptr(), r, ce, occ.data_ptr(), stream,
+        *(x.data_ptr() for x in places), woop.data_ptr(), r, n_inst,
+        occ.data_ptr(), stream,
     )
     _raise_on(err, "occluded_dnf_inst_kernel")
     LAUNCHES["occluded_inst"] += 1

@@ -10,7 +10,8 @@ versions, and the scene's closest-hit / any-hit queries.
     tests/test_clusters.py: t within rtol 1e-6 on live lanes; slot equal
     or t tied; normals within 1e-4 where the slots agree — with dead
     lanes and a ray count that is not a multiple of the kernel tile.
-    ``occluded_torch`` agrees with ``occluded_pallas_dnf`` exactly.
+    ``occluded_torch`` agrees with ``occluded_pallas_dnf`` exactly, and so
+    does the flat any hit's plain version, the walk ``occluded_tree_torch``.
 (d) ``intersect_batch``/``occluded_batch`` agree with the JAX ones
     (``traversal="cluster_jax"``) on camera rays and random rays, with the
     same tolerances (sphere normals are recomputed from positions: 1e-4).
@@ -391,3 +392,59 @@ def test_with_tree_leaves_are_the_real_clusters():
     leaves = built.node_meta[1][built.node_meta[1] >= 0]
     assert sorted(leaves.tolist()) == real.tolist()
     assert tcl.with_tree(flat) is flat
+
+
+# --- the flat any hit's walk of the set's cluster tree --------------------
+
+
+def _shadow_caps(n, seed):
+    """Caps of a shadow wave: uniform in (0, 6), every 11th lane dead and
+    every 7th capped short of most surfaces."""
+    rs = np.random.RandomState(seed)
+    cap = (rs.rand(n) * 6.0).astype(np.float32)
+    cap[::7] = (rs.rand(len(cap[::7])) * 0.05).astype(np.float32)
+    cap[::11] = 0.0
+    return cap
+
+
+def test_flat_any_hit_route_is_the_walk(scenes):
+    """The flat any hit's route pairs the walk with the kernel wrapper, and
+    on CPU tensors the wrapper is the walk."""
+    route = tscene_mod._ROUTES["occluded", "flat"]
+    assert route == (tct.occluded_tree_torch, tct.occluded)
+    _, t = scenes["mesh"]
+    o, d = random_rays(97, 27)
+    args = [torch.as_tensor(a) for a in (o, d, _shadow_caps(97, 27))]
+    occ = tct.occluded(t.clusters, *args)
+    assert torch.equal(occ, tct.occluded_tree_torch(t.clusters, *args))
+    assert 0 < int(occ.sum()) < 97
+
+
+@pytest.mark.parametrize("name", ["mesh", "soup"])
+def test_flat_any_hit_walk_matches_jax(scenes, name):
+    """The walk (the flat any-hit kernel's plain version) equals the
+    index-order sweep ``occluded_torch`` and the JAX DNF any-hit kernel
+    exactly, with dead lanes and lanes capped short, at ray counts that
+    are not warp multiples (529 and 333)."""
+    j, t = scenes[name]
+    o, d = _camera_rays(23) if name == "mesh" else random_rays(333, 28)
+    cap = _shadow_caps(o.shape[0], 28)
+    ref = jct.occluded_pallas_dnf(j.clusters, jnp.asarray(o), jnp.asarray(d),
+                                  jnp.asarray(cap), interpret=True)
+    args = [torch.as_tensor(a) for a in (o, d, cap)]
+    walk = tct.occluded_tree_torch(t.clusters, *args)
+    assert torch.equal(walk, tct.occluded_torch(t.clusters, *args))
+    np.testing.assert_array_equal(_np(ref), _np(walk))
+    live = cap > 0
+    assert 10 < int(_np(walk).sum()) < int(live.sum()) - 10
+    assert not _np(walk)[~live].any()
+
+
+def test_flat_any_hit_refuses_a_set_without_tree(scenes):
+    _, t = scenes["mesh"]
+    o, d = random_rays(8, 29)
+    args = [torch.as_tensor(a) for a in (o, d, _shadow_caps(8, 29))]
+    for field in ("node_box", "node_meta", "oct_links"):
+        bare = t.clusters._replace(**{field: None})
+        with pytest.raises(ValueError, match=f"no cluster tree.*{field}"):
+            tct.occluded(bare, *args)

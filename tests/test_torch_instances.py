@@ -717,3 +717,107 @@ def test_motion_blur_render_matches_jax(cornells):
     img = _render_pair(j, t, jscenes.CORNELL_CAMERA, width=24, height=24,
                        samples_per_pixel=2, max_depth=5, seed=2, nee=True)
     assert img.mean() > 0.05
+
+
+# The placement boxes staged in shared memory at a time by both instanced
+# kernels (csrc/cluster_common.cuh kBoxChunk).
+BOX_CHUNK = 1024
+
+
+def _two_level_any(cl, inst, o, d, cap, tm):
+    """The instanced any-hit kernel's sweep in plain torch: placements in
+    chunks of ``BOX_CHUNK``, a pending ray (live, not yet occluded) enters
+    a placement only where it pierces the placement's box against its cap,
+    then sweeps the placement's expanded boxes in index order and retires
+    at its first occluding pair. Returns (pairs evaluated, occlusion)."""
+    occ = torch.zeros(o.shape[0], dtype=torch.bool)
+    inv_d = tct._safe_inv(d)
+    tt = tct._shutter_time(inst, tm, o.shape[0], o.device)
+    first = inst.inst_first.tolist()
+    n_inst = len(first) - 1
+    n_eval = 0
+    for p0 in range(0, n_inst, BOX_CHUNK):
+        for p in range(p0, min(p0 + BOX_CHUNK, n_inst)):
+            inside = (cap > 0.0) & ~occ & tct._slab(
+                o, inv_d, inst.inst_min[p], inst.inst_max[p], cap)
+            for e in range(first[p], first[p + 1]):
+                hit = inside & ~occ & tct._slab(o, inv_d, inst.aabb_min[e],
+                                                inst.aabb_max[e], cap)
+                idx = torch.nonzero(hit).squeeze(1)
+                n_eval += idx.numel()
+                if idx.numel() == 0:
+                    continue
+                o_e, d_e = tct._object_rays(inst, e, o[idx], d[idx],
+                                            None if tt is None else tt[idx])
+                t_pair = tct._pair_eval(o_e, d_e,
+                                        cl.woop[int(inst.cmap[e])],
+                                        cap[idx][:, None])
+                occ[idx] = torch.min(t_pair, dim=1).values < cap[idx]
+    return n_eval, occ
+
+
+@pytest.mark.parametrize("variant,tmode", CASES)
+def test_placement_culling_any_hit_evaluates_the_same_pairs(field, variant,
+                                                            tmode):
+    """The two-level any-hit sweep, lanes retired at their first occluder,
+    evaluates exactly ``occluded_inst_torch``'s pairs (its
+    ``cluster_evals``) and gives its occlusion: the culling by placement
+    boxes is exact for the any hit too."""
+    cl = _to_torch(field[variant][0])
+    inst = _port_set(field, variant)
+    o, d = (torch.as_tensor(a) for a in _rays(301, seed=13))
+    cap = (np.random.default_rng(13).uniform(5, 25, 301)).astype(np.float32)
+    cap[::11] = 0.0
+    cap = torch.as_tensor(cap)
+    tm = _times(variant, tmode, 301)
+    tm = None if tm is None else torch.as_tensor(tm)
+    stats = {}
+    ref = tct.occluded_inst_torch(cl, inst, o, d, cap, time=tm, stats=stats)
+    n_eval, occ = _two_level_any(cl, inst, o, d, cap, tm)
+    assert n_eval == stats["cluster_evals"] > 0
+    assert torch.equal(occ, ref)
+    assert 0 < int(occ.sum()) < int((cap > 0).sum())
+
+
+def test_placement_boxes_past_one_chunk():
+    """A field of more than ``BOX_CHUNK`` placements (1,089 one-cluster
+    instances and the base geometry) keeps each placement's run and box
+    right across the chunk edge, and the two-level any hit over two chunks
+    gives ``occluded_inst_torch``'s occlusion from the same pairs."""
+    scene, _ = tscenes.instanced_demo(grid=33, subdivisions=0, device="cpu")
+    inst = scene.instances
+    first = inst.inst_first.tolist()
+    n_inst = len(first) - 1
+    assert n_inst == 1090 > BOX_CHUNK
+    assert first[0] == 0 and first[-1] == inst.cmap.shape[0]
+    assert all(a < b for a, b in zip(first, first[1:]))
+    run = torch.repeat_interleave(torch.arange(n_inst),
+                                  torch.diff(inst.inst_first).long())
+    assert torch.equal(run.to(torch.int32), inst.inst_id)
+    for p in range(BOX_CHUNK - 3, BOX_CHUNK + 3):
+        lo, hi = first[p], first[p + 1]
+        assert torch.equal(inst.inst_min[p], inst.aabb_min[lo:hi].amin(0))
+        assert torch.equal(inst.inst_max[p], inst.aabb_max[lo:hi].amax(0))
+    assert bool((inst.aabb_min >= inst.inst_min[run]).all())
+    assert bool((inst.aabb_max <= inst.inst_max[run]).all())
+    # Rays from above the field down onto it, aimed at placements on
+    # both sides of the chunk edge.
+    rs = np.random.default_rng(14)
+    n = 97
+    c = inst.inst_min[BOX_CHUNK - 40:BOX_CHUNK + 40]
+    tgt = c[rs.integers(0, c.shape[0], n)].numpy() + rs.uniform(
+        -0.5, 1.5, (n, 3))
+    o = tgt + rs.uniform(-2.0, 2.0, (n, 3)) * [1.0, 0.0, 1.0] + [0, 6.0, 0]
+    d = tgt - o
+    dist = np.linalg.norm(d, axis=1)
+    cap = (dist * rs.uniform(0.5, 1.5, n)).astype(np.float32)
+    cap[::11] = 0.0
+    o, d, cap = (torch.as_tensor(a.astype(np.float32)) for a in
+                 (o, d / dist[:, None], cap))
+    stats = {}
+    ref = tct.occluded_inst_torch(scene.clusters, inst, o, d, cap,
+                                  stats=stats)
+    n_eval, occ = _two_level_any(scene.clusters, inst, o, d, cap, None)
+    assert n_eval == stats["cluster_evals"] > 0
+    assert torch.equal(occ, ref)
+    assert 5 < int(occ.sum()) < int((cap > 0).sum()) - 5

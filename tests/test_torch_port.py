@@ -12,6 +12,7 @@ to the single-shot render; the tonemap and PNG bytes equal the JAX
 package's.
 """
 
+import dataclasses
 import os
 import pkgutil
 import re
@@ -293,3 +294,15 @@ def test_tonemap_and_png_match_jax(curve):
     assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
     assert (a == b).mean() > 0.99
     assert jimage.encode_png(b) == timage.encode_png(b)
+
+
+@pytest.mark.parametrize("change", [
+    {"projection": "ortho"},
+    {"motion_position": (0.0, 1.0, 5.0)},
+])
+def test_unported_camera_features_name_their_item(change):
+    """The projections and camera motion both wait for ROADMAP queue A
+    item 20, and the messages say so."""
+    cfg = dataclasses.replace(scenes.CORNELL_CAMERA, **change)
+    with pytest.raises(NotImplementedError, match="item 20"):
+        tcamera.build_camera(cfg, 1.0, device="cpu")
