@@ -45,13 +45,16 @@ Phases, in order; any failure exits non-zero:
                  the tree walks on the unpaged ClusterSet of the same
                  triangles (closest hit on the camera and bounce waves,
                  any hit on the shadow waves) and on the paged set
-                 (per-page walk); the paged closest hit again on the same
-                 triangles paged by 1,536 (10 pages). Each kernel runs and
-                 is timed on the whole wave; it is held bit for bit
-                 against its plain version, and under the tie contract
-                 against ``trace_torch``, on 65,549 rays drawn from the
-                 wave (the plain versions synchronise with the host once
-                 per cluster or walk step).
+                 (per-page walk, pages nearest first, camera and bounce
+                 waves); the paged closest hit and the per-page walk again
+                 on the camera wave over the same triangles paged by 1,536
+                 (10 pages). Each kernel runs and is timed on the whole
+                 wave; it is held bit for bit against its plain version,
+                 and under the tie contract against ``trace_torch`` (the
+                 per-page walk also against the page-order walk
+                 ``trace_tree_paged_torch``), on 65,549 rays drawn from
+                 the wave (the plain versions synchronise with the host
+                 once per cluster or walk step).
                Each traversal kernel's bound counts the cluster
                evaluations its wave needs in any visiting order
                (``needed_evals``, a slab-test pass over the whole wave
@@ -129,17 +132,28 @@ BIG_SUBSET = 65_549          # rays of a big-scene wave held against plain
 FORCED_PAGE = 1536           # cornell_mesh(8) in 10 pages
 # Tree-node bytes: box 24, meta 8, the 16 octant links 64.
 NODE_BYTES = 96
-# The design of the closest-hit kernels on the shared walker
-# (csrc/cluster_walk.cuh), named in the kernels line.
+# The design of the big-scene kernels on the shared walker
+# (csrc/cluster_walk.cuh), and the plain versions they are held to bit for
+# bit, named in the kernels line.
 WALK_DESIGN = ("per-ray walk, one leaf held per lane, held leaves evaluated "
                "by the whole warp (cluster_walk.cuh warp_walk)")
 DESIGNS = {
     "trace_paged_dnf": {"design": WALK_DESIGN + " over each page's tree, "
-                        "pages nearest first; table normal and material"},
+                        "pages nearest first; table normal and material",
+                        "plain": "trace_paged_walk_torch"},
     "occluded_paged_dnf": {"design": WALK_DESIGN + " over each page's tree, "
-                           "any hit"},
+                           "any hit", "plain": "occluded_paged_dnf_torch"},
     "trace_tree": {"design": WALK_DESIGN + " over the unpaged set's tree; "
-                   "normal from the winner's Woop w-row"},
+                   "normal from the winner's Woop w-row",
+                   "plain": "trace_tree_torch"},
+    "occluded_tree": {"design": WALK_DESIGN + " over the unpaged set's "
+                      "tree, any hit (any_hit_walk, row 2's body)",
+                      "plain": "occluded_tree_torch"},
+    "trace_tree_paged": {"design": WALK_DESIGN + " over each page's tree, "
+                         "pages nearest first (row 6's walk); normal from "
+                         "the winner's Woop w-row",
+                         "plain": "trace_tree_paged_walk_torch",
+                         "vs_trace_tree_paged_torch": "tie contract held"},
 }
 
 
@@ -396,7 +410,7 @@ def held_rays(wave, sub):
 
 def check_trace(kernel, plain, wave, chunk=PLAIN_CHUNK, strict=False,
                 normal_tol=1e-6, sub=None, reference=None, shadow=False,
-                boxes=None):
+                boxes=None, oracle=None):
     """A closest-hit kernel against its plain version on one wave.
     ``kernel(*wave)`` and ``plain(*wave, stats=...)`` take the wave's
     per-ray arrays (origin, direction, t_init[, time]). The kernel runs
@@ -409,9 +423,10 @@ def check_trace(kernel, plain, wave, chunk=PLAIN_CHUNK, strict=False,
     normal is not bit-equal). ``reference(o, d, t)``: a second
     closest-hit function (``trace_torch``) that the kernel must meet under
     the tie contract on the same rays (``tie_mismatches``; ``shadow``:
-    equal in ``slot >= 0`` too). ``boxes``: (aabb_min, aabb_max) of the
-    real clusters, to count the evaluations the wave needs
-    (``needed_evals``, for the bound)."""
+    equal in ``slot >= 0`` too). ``oracle(o, d, t)``: a further
+    closest-hit function held the same way (``oracle_tie_mismatches``).
+    ``boxes``: (aabb_min, aabb_max) of the real clusters, to count the
+    evaluations the wave needs (``needed_evals``, for the bound)."""
     import torch
 
     t0 = wave[2]
@@ -447,6 +462,9 @@ def check_trace(kernel, plain, wave, chunk=PLAIN_CHUNK, strict=False,
         if shadow:
             tie_bad = tie_bad | ((sk >= 0) != (ref[1] >= 0))
         res["tie_mismatches"] = int(tie_bad.sum())
+    if oracle is not None:
+        res["oracle_tie_mismatches"] = int(
+            (~tie_ok(oracle(*rays), (tk, sk, nk, mk), live)).sum())
     if boxes is not None:
         res["needed_evals"] = needed_evals(*boxes, wave, out_k[0])
     return res
@@ -544,11 +562,14 @@ def inst_fns(clusters, inst):
 def report(kname, res, failures, **extra):
     print(kname + " " + json.dumps({**extra, **{
         k: v for k, v in res.items() if k != "stats"}}), flush=True)
-    if res["mismatches"] or res.get("tie_mismatches"):
+    if (res["mismatches"] or res.get("tie_mismatches")
+            or res.get("oracle_tie_mismatches")):
         failures.append(f"{kname} {extra}: {res['mismatches']} rays "
                         f"against the plain version, "
                         f"{res.get('tie_mismatches', 0)} against the "
-                        "JAX-order oracle")
+                        "JAX-order oracle, "
+                        f"{res.get('oracle_tie_mismatches', 0)} against the "
+                        "second oracle")
 
 
 def check_gather(table, idx, label, failures, timed=False):
@@ -908,12 +929,14 @@ def big_scene_checks(camera, config, failures):
                                "trace_tree", "occluded_tree",
                                "trace_tree_paged")}
 
-    def run_check(name, kernel, plain, tables, key, wname, **extra):
+    def run_check(name, kernel, plain, tables, key, wname, oracle=None,
+                  **extra):
         """Row ``name`` on wave ``wname``: bit for bit against its plain
         version and under the tie contract against ``trace_torch`` over
-        ``tables`` on the rays ``sub``. The evaluations a wave needs are
-        counted once for each query on it: every closest-hit kernel finds
-        the same final t, so rows 6, 7 and 9 share one bound."""
+        ``tables`` (and ``oracle``, a closest hit, when given) on the rays
+        ``sub``. The evaluations a wave needs are counted once for each
+        query on it: every closest-hit kernel finds the same final t, so
+        rows 6, 7 and 9 share one bound."""
         any_hit = name.startswith("occluded")
         count = (wname, any_hit)
         kw = dict(chunk=BIG_SUBSET, sub=sub, reference=reference(tables, key),
@@ -922,7 +945,8 @@ def big_scene_checks(camera, config, failures):
             res = check_occluded(kernel, plain, waves[wname], **kw)
         else:
             res = check_trace(kernel, plain, waves[wname], strict=True,
-                              normal_tol=0.0, shadow="shadow" in wname, **kw)
+                              normal_tol=0.0, shadow="shadow" in wname,
+                              oracle=oracle, **kw)
         res["needed_evals"] = needed.setdefault(count, res.get(
             "needed_evals"))
         results[name][wname if not extra else f"{wname}:{key}"] = res
@@ -932,6 +956,17 @@ def big_scene_checks(camera, config, failures):
         return (lambda o, d, cap: ct.trace_paged_dnf(c, p, o, d, cap),
                 lambda o, d, cap, stats: ct.trace_paged_walk_torch(
                     c, p, o, d, cap, stats=stats))
+
+    def tree_paged(c, p):
+        """Row 9 over ``(c, p)``: its kernel, its plain version (the
+        nearest-first walk) and the page-order walk as a second oracle."""
+        return dict(
+            kernel=lambda o, d, cap: ct.trace_tree_paged(c, p, o, d, cap),
+            plain=lambda o, d, cap, stats: ct.trace_tree_paged_walk_torch(
+                c, p, o, d, cap, stats=stats),
+            oracle=lambda o, d, cap: in_chunks(
+                lambda *a, stats: ct.trace_tree_paged_torch(c, p, *a),
+                (o, d, cap), {}, BIG_SUBSET))
 
     for wname in ("camera", "bounce", "camera_shadow", "bounce_shadow"):
         run_check("trace_paged_dnf", *paged(cl, pages), cl, "paged:" + wname,
@@ -949,11 +984,8 @@ def big_scene_checks(camera, config, failures):
                   lambda o, d, cap, stats: ct.trace_tree_torch(
                       flat, o, d, cap, stats=stats),
                   flat, "flat:" + wname, wname)
-        run_check("trace_tree_paged",
-                  lambda o, d, cap: ct.trace_tree_paged(cl, pages, o, d, cap),
-                  lambda o, d, cap, stats: ct.trace_tree_paged_torch(
-                      cl, pages, o, d, cap, stats=stats),
-                  cl, "paged:" + wname, wname)
+        run_check("trace_tree_paged", tables=cl, key="paged:" + wname,
+                  wname=wname, **tree_paged(cl, pages))
     for wname in ("camera_shadow", "bounce_shadow"):
         run_check("occluded_tree",
                   lambda o, d, cap: ct.occluded_tree(flat, o, d, cap),
@@ -962,6 +994,9 @@ def big_scene_checks(camera, config, failures):
                   flat, "flat:" + wname, wname)
     run_check("trace_paged_dnf", *paged(forced, forced_pages), forced,
               f"forced{FORCED_PAGE}", "camera", page_clusters=FORCED_PAGE)
+    run_check("trace_tree_paged", tables=forced, key=f"forced{FORCED_PAGE}",
+              wname="camera", page_clusters=FORCED_PAGE,
+              **tree_paged(forced, forced_pages))
     del waves, refs, forced, forced_pages
     return {"scene": scene, "flat": flat, "results": results,
             "n_real": n_real, "n_pages": n_pages, "page_nodes": page_nodes,

@@ -3,14 +3,15 @@
 // cluster_trace_paged.cu: paged scenes; cluster_trace_tree.cu: the
 // cluster-tree walks): the ray record, the safe reciprocal, the direction
 // octant, the shared-memory box staging, the slab test, the Woop triangle
-// test, the closest hit and any hit within one cluster on one lane or on
-// the whole warp, and the table epilogue of a closest hit. The tree walker
-// that evaluates with the whole warp is in cluster_walk.cuh. Every multiply
-// and add is written in the order of the plain torch versions
-// (ops/cluster_trace.py: _slab, _pair_eval) and the sources are built with
-// --fmad=false, so a kernel's t equals its plain version's bit for bit.
-// The Woop tests are float32 multiply-adds on the CUDA cores: a tensor-core
-// product would round through TF32, which breaks geometry.
+// test, the closest hit and any hit of rays within one cluster on the whole
+// warp, and the two epilogues of a closest hit (normal from the cluster
+// table, or from the winner's Woop w-row). The tree walker is in
+// cluster_walk.cuh. Every multiply and add is written in the order of the
+// plain torch versions (ops/cluster_trace.py: _slab, _pair_eval) and the
+// sources are built with --fmad=false, so a kernel's t equals its plain
+// version's bit for bit. The Woop tests are float32 multiply-adds on the
+// CUDA cores: a tensor-core product would round through TF32, which breaks
+// geometry.
 
 #pragma once
 
@@ -157,39 +158,6 @@ __device__ __forceinline__ float woop_test(const WoopTri& tri, const Ray& r,
   return ok ? t : kBig;
 }
 
-// Woop evaluation of triangle `j` of one cluster.
-__device__ __forceinline__ float woop_hit(const float* __restrict__ w,
-                                          int j, const Ray& r, float cap) {
-  return woop_test(load_tri(w, j), r, cap);
-}
-
-// Closest hit of a ray among the 128 triangles of one cluster (w points at
-// its (4, 384) tensor), capped at `cap`: the smallest t (kBig when none)
-// and in `lane_min` the first lane that reaches it, the plain version's
-// smallest lane on a tie.
-__device__ __forceinline__ float closest_in_cluster(
-    const float* __restrict__ w, const Ray& r, float cap, int& lane_min) {
-  float t_min = kBig;
-  lane_min = kClusterSize;
-  for (int j = 0; j < kClusterSize; ++j) {
-    const float t = woop_hit(w, j, r, cap);
-    if (t < t_min) {
-      t_min = t;
-      lane_min = j;
-    }
-  }
-  return t_min;
-}
-
-// Whether some triangle of one cluster lies strictly inside (T_MIN, cap).
-__device__ __forceinline__ bool any_in_cluster(const float* __restrict__ w,
-                                               const Ray& r, float cap) {
-  for (int j = 0; j < kClusterSize; ++j) {
-    if (woop_hit(w, j, r, cap) < cap) return true;
-  }
-  return false;
-}
-
 // --- The whole warp on one (ray, cluster) pair -------------------------
 // Lane l takes triangles l, l + 32, l + 64 and l + 96 of the cluster, so
 // each Woop row load is one coalesced 128-byte access and the 128 tests
@@ -227,7 +195,7 @@ __device__ __forceinline__ Ray shfl_ray(const Ray& r, int src) {
 // capped at the warp-uniform cap: on every lane the smallest t (kBig when
 // none) and in `j_min` the smallest triangle index that reaches it. The
 // five butterfly steps keep the smaller (t, index) pair, so the result is
-// closest_in_cluster's serial scan.
+// the plain version's (_closest_update: the smallest lane on a tie).
 __device__ __forceinline__ float warp_closest(const WarpCluster& wc,
                                               const Ray& q, float cap,
                                               int lane, int& j_min) {
@@ -324,6 +292,37 @@ __device__ __forceinline__ void store_closest(
     for (int a = 0; a < 3; ++a) normal_out[3 * i + a] = 0.0f;
     mat_out[i] = 0;
   }
+}
+
+// Write ray i's closest-hit result of the tree walks: the normal is the
+// winner's Woop w-row normalised with rsqrt, as the JAX tree kernels
+// compute it, and the material comes from the table (normal 0 and mat 0 on
+// a miss).
+__device__ __forceinline__ void store_tree_hit(
+    int i, float best, int best_slot, const float* __restrict__ woop,
+    const int* __restrict__ mat, float* __restrict__ t_out,
+    int* __restrict__ slot_out, float* __restrict__ normal_out,
+    int* __restrict__ mat_out) {
+  t_out[i] = best;
+  slot_out[i] = best_slot;
+  if (best_slot < 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) normal_out[3 * i + a] = 0.0f;
+    mat_out[i] = 0;
+    return;
+  }
+  const int c = best_slot / kClusterSize;
+  const int lane = best_slot % kClusterSize;
+  const float* w = woop + static_cast<size_t>(c) * 4 * kWoopCols +
+                   2 * kClusterSize + lane;
+  const float nx = w[0];
+  const float ny = w[kWoopCols];
+  const float nz = w[2 * kWoopCols];
+  const float inv_len = rsqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
+  normal_out[3 * i + 0] = nx * inv_len;
+  normal_out[3 * i + 1] = ny * inv_len;
+  normal_out[3 * i + 2] = nz * inv_len;
+  mat_out[i] = mat[static_cast<size_t>(c) * kClusterSize + lane];
 }
 
 }  // namespace ptpu

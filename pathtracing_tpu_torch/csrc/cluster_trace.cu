@@ -32,8 +32,8 @@
 // first, so early hits cull the subtrees behind them; leaves are held one
 // per lane and evaluated by the whole warp, four triangles a lane with
 // coalesced Woop loads: the walker of cluster_walk.cuh
-// (warp_walk<kPaged = false>), which the paged and the tree closest hits
-// share. The (t, index) reduction keeps the smallest index on a tie, and
+// (closest_hit_walk<kPaged = false>), which the paged and the tree
+// closest hits share. The (t, index) reduction keeps the smallest index on a tie, and
 // strict < across clusters keeps the first cluster of the walk, so t,
 // slot, normal and mat equal the plain walk (trace_flat_walk_torch) bit
 // for bit. Against the index-order sweep (trace_torch, the JAX order) t is
@@ -42,9 +42,9 @@
 // Design of the any hit (occluded_dnf_kernel). The first Hopper design
 // kept the TPU's sweep: every cluster box in index order for every warp,
 // a pierced cluster's 128 triangles tested on one lane. Here the any hit
-// takes the closest hit's walk of the same tree (warp_walk<kPaged =
-// false, kAnyHit = true>): the cap stays fixed, and a lane retires at its
-// first occluding cluster. Whether some triangle lies strictly inside
+// takes the closest hit's walk of the same tree (any_hit_walk<kPaged =
+// false>, the body of the tree route's any hit too): the cap stays fixed,
+// and a lane retires at its first occluding cluster. Whether some triangle lies strictly inside
 // (T_MIN, cap) does not depend on the order of visits, so the bool equals
 // the plain walk (occluded_tree_torch) and the index-order sweep
 // (occluded_torch, the JAX order) alike. The tree's leaves are the set's
@@ -74,23 +74,10 @@ trace_dnf_kernel(const float* __restrict__ origin,
                  const int* __restrict__ links, int n_rays, int n_nodes,
                  float* __restrict__ t_out, int* __restrict__ slot_out,
                  float* __restrict__ normal_out, int* __restrict__ mat_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_range = i < n_rays;
-  Ray r = {};
-  float best = 0.0f;
-  if (in_range) {
-    r = load_ray(origin, direction, i);
-    best = t_init[i];
-  }
-  int best_slot = -1;
-  bool unused = false;
-  warp_walk<false, false>(woop, node_box, node_meta, links, 1, 0, n_nodes,
-                          in_range && best > 0.0f, r, best, best_slot,
-                          unused);
-  if (in_range) {
-    store_closest(i, best, best_slot, normal, mat, t_out, slot_out,
-                  normal_out, mat_out);
-  }
+  closest_hit_walk<false, false>(origin, direction, t_init, woop, normal, mat,
+                                 node_box, node_meta, links, n_rays, 1, 0,
+                                 n_nodes, t_out, slot_out, normal_out,
+                                 mat_out);
 }
 
 __global__ void __launch_bounds__(kBlock, 2)
@@ -102,19 +89,8 @@ occluded_dnf_kernel(const float* __restrict__ origin,
                     const int* __restrict__ node_meta,
                     const int* __restrict__ links, int n_rays, int n_nodes,
                     bool* __restrict__ occ_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_range = i < n_rays;
-  Ray r = {};
-  float cap = 0.0f;
-  if (in_range) {
-    r = load_ray(origin, direction, i);
-    cap = t_max[i];
-  }
-  int unused_slot = -1;
-  bool occ = false;
-  warp_walk<false, true>(woop, node_box, node_meta, links, 1, 0, n_nodes,
-                         in_range && cap > 0.0f, r, cap, unused_slot, occ);
-  if (in_range) occ_out[i] = occ;
+  any_hit_walk<false>(origin, direction, t_max, woop, node_box, node_meta,
+                      links, n_rays, 1, 0, n_nodes, occ_out);
 }
 
 }  // namespace

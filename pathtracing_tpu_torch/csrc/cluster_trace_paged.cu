@@ -32,8 +32,9 @@
 // first page it enters no earlier than its best t. Leaves are real
 // clusters only, so padding clusters are never visited. Leaves are held
 // one per lane and evaluated by the whole warp: the walker in
-// cluster_walk.cuh (warp_walk<kPaged = true>), which the flat and the
-// tree closest hits share. The any hit retires a lane at its first
+// cluster_walk.cuh (closest_hit_walk<kPaged = true> and
+// any_hit_walk<kPaged = true>; the tree route's per-page closest hit is
+// the same walk with the Woop-row normal). The any hit retires a lane at its first
 // occluding cluster (a warp ballot). Built with --fmad=false, so t, slot,
 // normal and mat equal the plain version
 // (cluster_trace.trace_paged_walk_torch) bit for bit, and occlusion equals
@@ -59,23 +60,10 @@ trace_paged_dnf_kernel(const float* __restrict__ origin,
                        float* __restrict__ t_out, int* __restrict__ slot_out,
                        float* __restrict__ normal_out,
                        int* __restrict__ mat_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_range = i < n_rays;
-  Ray r = {};
-  float best = 0.0f;
-  if (in_range) {
-    r = load_ray(origin, direction, i);
-    best = t_init[i];
-  }
-  int best_slot = -1;
-  bool unused = false;
-  warp_walk<true, false>(woop, node_box, node_meta, links, n_pages,
-                         page_size, page_nodes, in_range && best > 0.0f, r,
-                         best, best_slot, unused);
-  if (in_range) {
-    store_closest(i, best, best_slot, normal, mat, t_out, slot_out,
-                  normal_out, mat_out);
-  }
+  closest_hit_walk<true, false>(origin, direction, t_init, woop, normal, mat,
+                                node_box, node_meta, links, n_rays, n_pages,
+                                page_size, page_nodes, t_out, slot_out,
+                                normal_out, mat_out);
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -88,20 +76,8 @@ occluded_paged_dnf_kernel(const float* __restrict__ origin,
                           const int* __restrict__ links, int n_rays,
                           int n_pages, int page_size, int page_nodes,
                           bool* __restrict__ occ_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_range = i < n_rays;
-  Ray r = {};
-  float cap = 0.0f;
-  if (in_range) {
-    r = load_ray(origin, direction, i);
-    cap = t_max[i];
-  }
-  int unused = -1;
-  bool occluded = false;
-  warp_walk<true, true>(woop, node_box, node_meta, links, n_pages,
-                        page_size, page_nodes, in_range && cap > 0.0f, r, cap,
-                        unused, occluded);
-  if (in_range) occ_out[i] = occluded;
+  any_hit_walk<true>(origin, direction, t_max, woop, node_box, node_meta,
+                     links, n_rays, n_pages, page_size, page_nodes, occ_out);
 }
 
 int launch_grid(int n_rays) { return (n_rays + kBlock - 1) / kBlock; }

@@ -1,7 +1,8 @@
 // Cluster-tree walks for Hopper (sm_90a): closest hit and any hit by a
 // per-ray stackless walk of the threaded binary tree over cluster boxes
-// (ops/clusters.py build_cluster_tree, build_octant_trees), and the closest
-// hit by the same walk over each page's tree of a paged scene.
+// (ops/clusters.py build_cluster_tree, build_octant_trees) of an unpaged
+// scene past the flat budget, and the closest hit by the same walk over
+// each page's tree of a paged scene.
 //
 // Replaces the TPU kernels of the JAX package:
 //   trace_tree_kernel       <- pathtracing_tpu/ops/cluster_trace.py
@@ -18,102 +19,38 @@
 // What bounds them on this card: operations, the Woop tests the rays need:
 // each pair of a ray and a cluster box it pierces before its final hit (for
 // the any hit: before its cap, one cluster for an occluded ray), times 128
-// triangles. The walk adds one slab test per visited node, and evaluates
-// every cluster it reaches before the ray's best hit so far. Node boxes
-// (24 B a node, 0.7 MB for a 29,471-node tree) stay in L2.
+// triangles of 48 float32 operations on the CUDA cores, or, for the any
+// hit, the bytes of the Woop rows (6,144 B a cluster: 90.5 MB for the
+// 14,736 clusters of cornell_mesh(8), past the 50 MB L2) and of the tree.
+// The walk adds one slab test per visited node.
 //
 // Design: the TPU walks one scalar node index per 256-ray tile, with the
 // tile's octant taken from its first ray, a K-step lookahead over
 // precomputed candidate boxes and a leaf queue, because Mosaic has no
-// per-lane control flow or gather. Here each thread walks its own ray: it
-// picks its own direction octant (x>0 -> +4, y>0 -> +2, z>0 -> +1; a zero
-// component counts as negative), reads each node's box from global memory,
-// and follows next = hit ? hit_link[oct][n] : miss_link[oct][n] until n >=
-// N. The octant order visits near children first, so early hits cull the
-// subtrees behind them.
-//   trace_tree_kernel holds each leaf it pierces before its best t and
-// evaluates it with the whole warp: the walker of cluster_walk.cuh
-// (warp_walk<kPaged = false>), shared with the flat and the paged closest
-// hits; every lane of the warp reaches it, out-of-range lanes with live =
-// false. Its epilogue (store_tree_hit) takes the normal from the winner's
-// Woop w-row.
-//   occluded_tree_kernel and trace_tree_paged_kernel (walk_tree) still
-// evaluate each leaf on the lane that reached it, which retires at its
-// first hit in the any hit; divergence between the lanes of a warp is the
-// cost of that first design.
-// The (t, index) reduction keeps the smallest index on a tie, as the serial
-// scan does, and the sources are built with --fmad=false, so t, slot,
-// normal and mat equal the plain per-ray walks (trace_tree_torch,
-// occluded_tree_torch, trace_tree_paged_torch) bit for bit.
+// per-lane control flow or gather. Here each lane walks its own ray along
+// its own direction octant (near children first, so early hits cull the
+// subtrees behind them), holds each leaf it pierces, and the warp
+// evaluates the held leaves together, four triangles a lane with coalesced
+// Woop loads: all three kernels are the shared walker of cluster_walk.cuh,
+//   trace_tree_kernel       closest_hit_walk<kPaged = false>, the one tree;
+//   occluded_tree_kernel    any_hit_walk<kPaged = false>, the cap fixed and
+//                           a lane retired at its first occluding cluster
+//                           (row 2's flat any hit runs the same body);
+//   trace_tree_paged_kernel closest_hit_walk<kPaged = true>: each page's
+//                           tree, pages nearest first, as the paged closest
+//                           hit (cluster_trace_paged.cu) walks them;
+// both closest hits with the Woop-row epilogue (store_tree_hit). Every
+// lane of a warp reaches the walker, out-of-range and dead lanes with live
+// = false. The (t, index) reduction keeps the smallest index on a tie, and
+// the sources are built with --fmad=false, so t, slot, normal and mat
+// equal the plain walks in the kernels' order (trace_tree_torch,
+// occluded_tree_torch, trace_tree_paged_walk_torch) bit for bit.
 
 #include "cluster_walk.cuh"
 
 using namespace ptpu;
 
 namespace {
-
-// Walk one threaded tree: node_box (6, N), node_meta (2, N) [skip, cluster
-// id or -1], links (16, N) [hit links of octants 0..7, then miss links].
-// Leaf ids are offset by cid_base. Closest hit: updates best and
-// best_slot. kAnyHit: best is the fixed cap; returns true at the first
-// triangle hit.
-template <bool kAnyHit>
-__device__ __forceinline__ bool walk_tree(
-    const float* __restrict__ node_box, const int* __restrict__ node_meta,
-    const int* __restrict__ links, int n_nodes,
-    const float* __restrict__ woop, int cid_base, const Ray& r, int oct,
-    float& best, int& best_slot) {
-  int n = 0;
-  while (n < n_nodes) {
-    const bool hit = slab_strided(node_box + n, n_nodes, r, best);
-    const int cid = __ldg(node_meta + n_nodes + n);
-    if (hit && cid >= 0) {
-      const int c = cid_base + cid;
-      const float* w = woop + static_cast<size_t>(c) * 4 * kWoopCols;
-      if (kAnyHit) {
-        if (any_in_cluster(w, r, best)) return true;
-      } else {
-        int lane_min;
-        const float t_min = closest_in_cluster(w, r, best, lane_min);
-        if (t_min < best) {
-          best = t_min;
-          best_slot = c * kClusterSize + lane_min;
-        }
-      }
-    }
-    n = __ldg(links + static_cast<size_t>(hit ? oct : 8 + oct) * n_nodes +
-              n);
-  }
-  return false;
-}
-
-// Ray i's closest-hit result; the normal from the winner's Woop w-row.
-__device__ __forceinline__ void store_tree_hit(
-    int i, float best, int best_slot, const float* __restrict__ woop,
-    const int* __restrict__ mat, float* __restrict__ t_out,
-    int* __restrict__ slot_out, float* __restrict__ normal_out,
-    int* __restrict__ mat_out) {
-  t_out[i] = best;
-  slot_out[i] = best_slot;
-  if (best_slot < 0) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) normal_out[3 * i + a] = 0.0f;
-    mat_out[i] = 0;
-    return;
-  }
-  const int c = best_slot / kClusterSize;
-  const int lane = best_slot % kClusterSize;
-  const float* w = woop + static_cast<size_t>(c) * 4 * kWoopCols +
-                   2 * kClusterSize + lane;
-  const float nx = w[0];
-  const float ny = w[kWoopCols];
-  const float nz = w[2 * kWoopCols];
-  const float inv_len = rsqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
-  normal_out[3 * i + 0] = nx * inv_len;
-  normal_out[3 * i + 1] = ny * inv_len;
-  normal_out[3 * i + 2] = nz * inv_len;
-  mat_out[i] = mat[static_cast<size_t>(c) * kClusterSize + lane];
-}
 
 __global__ void __launch_bounds__(kBlock)
 trace_tree_kernel(const float* __restrict__ origin,
@@ -126,26 +63,15 @@ trace_tree_kernel(const float* __restrict__ origin,
                   const int* __restrict__ mat, int n_rays, int n_nodes,
                   float* __restrict__ t_out, int* __restrict__ slot_out,
                   float* __restrict__ normal_out, int* __restrict__ mat_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_range = i < n_rays;
-  Ray r = {};
-  float best = 0.0f;
-  if (in_range) {
-    r = load_ray(origin, direction, i);
-    best = t_init[i];
-  }
-  int best_slot = -1;
-  bool unused = false;
-  warp_walk<false, false>(woop, node_box, node_meta, links, 1, 0, n_nodes,
-                          in_range && best > 0.0f, r, best, best_slot,
-                          unused);
-  if (in_range) {
-    store_tree_hit(i, best, best_slot, woop, mat, t_out, slot_out,
-                   normal_out, mat_out);
-  }
+  closest_hit_walk<false, true>(origin, direction, t_init, woop, nullptr, mat,
+                                node_box, node_meta, links, n_rays, 1, 0,
+                                n_nodes, t_out, slot_out, normal_out,
+                                mat_out);
 }
 
-__global__ void __launch_bounds__(kBlock)
+// At least two blocks per SM, as row 2's any hit on the same body: under
+// the bare bound ptxas (CUDA 12.8) spilled that one.
+__global__ void __launch_bounds__(kBlock, 2)
 occluded_tree_kernel(const float* __restrict__ origin,
                      const float* __restrict__ direction,
                      const float* __restrict__ t_max,
@@ -154,16 +80,12 @@ occluded_tree_kernel(const float* __restrict__ origin,
                      const int* __restrict__ links,
                      const float* __restrict__ woop, int n_rays,
                      int n_nodes, bool* __restrict__ occ_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(origin, direction, i);
-  float cap = t_max[i];
-  int unused = -1;
-  occ_out[i] = cap > 0.0f &&
-               walk_tree<true>(node_box, node_meta, links, n_nodes, woop, 0,
-                               r, octant(r), cap, unused);
+  any_hit_walk<false>(origin, direction, t_max, woop, node_box, node_meta,
+                      links, n_rays, 1, 0, n_nodes, occ_out);
 }
 
+// The C interface's argument order (n_pages, page_nodes, page_size) is
+// kept; the walker takes (n_pages, page_size, page_nodes).
 __global__ void __launch_bounds__(kBlock)
 trace_tree_paged_kernel(const float* __restrict__ origin,
                         const float* __restrict__ direction,
@@ -177,22 +99,11 @@ trace_tree_paged_kernel(const float* __restrict__ origin,
                         float* __restrict__ t_out, int* __restrict__ slot_out,
                         float* __restrict__ normal_out,
                         int* __restrict__ mat_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(origin, direction, i);
-  float best = t_init[i];
-  int best_slot = -1;
-  if (best > 0.0f) {
-    const int oct = octant(r);
-    for (int g = 0; g < n_pages; ++g) {
-      const size_t p = static_cast<size_t>(g) * page_nodes;
-      walk_tree<false>(node_box + 6 * p, node_meta + 2 * p, links + 16 * p,
-                       page_nodes, woop, g * page_size, r, oct, best,
-                       best_slot);
-    }
-  }
-  store_tree_hit(i, best, best_slot, woop, mat, t_out, slot_out, normal_out,
-                 mat_out);
+  closest_hit_walk<true, true>(origin, direction, t_init, woop, nullptr, mat,
+                               node_box, node_meta, links, n_rays, n_pages,
+                               /*page_size=*/page_size,
+                               /*page_nodes=*/page_nodes, t_out, slot_out,
+                               normal_out, mat_out);
 }
 
 int launch_grid(int n_rays) { return (n_rays + kBlock - 1) / kBlock; }

@@ -1,7 +1,9 @@
-// The warp-cooperative cluster-tree walker, shared by both kernels of flat
-// scenes (cluster_trace.cu), the closest hit of unpaged scenes past the
-// flat budget (cluster_trace_tree.cu) and both kernels of paged scenes
-// (cluster_trace_paged.cu).
+// The warp-cooperative cluster-tree walker and the two kernel bodies on
+// it, shared by every traversal kernel that walks a tree: both kernels of
+// flat scenes (cluster_trace.cu), of paged scenes (cluster_trace_paged.cu)
+// and of the tree route past the flat budget (cluster_trace_tree.cu: the
+// closest hit and any hit over the unpaged set's tree, and the closest hit
+// over each page's tree).
 //
 // A tree is a threaded binary tree over cluster boxes (ops/clusters.py
 // build_cluster_tree, build_octant_trees): node_box (6, N) [xyz min, xyz
@@ -19,8 +21,8 @@
 // cluster_common.cuh): lanes holding one cluster are grouped with
 // __match_any_sync and share its coalesced Woop loads, each pair takes 32
 // lanes of four triangles, and the (t, index) reduction keeps the smallest
-// index on a tie, as the serial scan does. Holding one leaf at a time keeps
-// each ray's sequence of leaves and caps that of the plain walk
+// index on a tie, as the plain version does. Holding one leaf at a time
+// keeps each ray's sequence of leaves and caps that of the plain walk
 // (cluster_trace._walk_torch), so with --fmad=false the result equals it
 // bit for bit. The any hit retires a lane at its first occluding cluster.
 //
@@ -153,6 +155,71 @@ __device__ __forceinline__ void warp_walk(
       todo &= ~group;
     }
   }
+}
+
+// The body of a closest-hit kernel on the walker, for ray i = blockIdx.x *
+// blockDim.x + threadIdx.x: load the ray and its t_init, walk, write (t,
+// slot, normal, mat). Lanes past n_rays and dead lanes (t_init <= 0) walk
+// with live = false and store nothing past n_rays. kWoopNormal: the normal
+// is the winner's Woop w-row (store_tree_hit, the tree kernels; `normal` is
+// not read); otherwise normal and material come from the cluster tables
+// (store_closest).
+template <bool kPaged, bool kWoopNormal>
+__device__ __forceinline__ void closest_hit_walk(
+    const float* __restrict__ origin, const float* __restrict__ direction,
+    const float* __restrict__ t_init, const float* __restrict__ woop,
+    const float* __restrict__ normal, const int* __restrict__ mat,
+    const float* __restrict__ node_box, const int* __restrict__ node_meta,
+    const int* __restrict__ links, int n_rays, int n_pages, int page_size,
+    int page_nodes, float* __restrict__ t_out, int* __restrict__ slot_out,
+    float* __restrict__ normal_out, int* __restrict__ mat_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in_range = i < n_rays;
+  Ray r = {};
+  float best = 0.0f;
+  if (in_range) {
+    r = load_ray(origin, direction, i);
+    best = t_init[i];
+  }
+  int best_slot = -1;
+  bool unused = false;
+  warp_walk<kPaged, false>(woop, node_box, node_meta, links, n_pages,
+                           page_size, page_nodes, in_range && best > 0.0f,
+                           r, best, best_slot, unused);
+  if (in_range && kWoopNormal) {
+    store_tree_hit(i, best, best_slot, woop, mat, t_out, slot_out,
+                   normal_out, mat_out);
+  } else if (in_range) {
+    store_closest(i, best, best_slot, normal, mat, t_out, slot_out,
+                  normal_out, mat_out);
+  }
+}
+
+// The body of an any-hit kernel on the walker, for ray i as above: the cap
+// t_max stays fixed and occ_out[i] is whether some triangle lies strictly
+// inside (T_MIN, cap). Lanes past n_rays and dead lanes (t_max <= 0) walk
+// with live = false; a dead lane is not occluded.
+template <bool kPaged>
+__device__ __forceinline__ void any_hit_walk(
+    const float* __restrict__ origin, const float* __restrict__ direction,
+    const float* __restrict__ t_max, const float* __restrict__ woop,
+    const float* __restrict__ node_box, const int* __restrict__ node_meta,
+    const int* __restrict__ links, int n_rays, int n_pages, int page_size,
+    int page_nodes, bool* __restrict__ occ_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in_range = i < n_rays;
+  Ray r = {};
+  float cap = 0.0f;
+  if (in_range) {
+    r = load_ray(origin, direction, i);
+    cap = t_max[i];
+  }
+  int unused = -1;
+  bool occluded = false;
+  warp_walk<kPaged, true>(woop, node_box, node_meta, links, n_pages,
+                          page_size, page_nodes, in_range && cap > 0.0f, r,
+                          cap, unused, occluded);
+  if (in_range) occ_out[i] = occluded;
 }
 
 }  // namespace ptpu

@@ -54,19 +54,22 @@ through
 with the same contract, ``slot`` in the page-ordered cluster numbering of
 a paged set. All five walk threaded cluster trees per ray, each ray along
 its own direction octant's links (plain versions: vectorised walks in
-which all live rays step together). ``trace_paged_dnf`` and
-``occluded_paged_dnf`` walk each page's tree, a ray's pages nearest
-first (plain versions ``trace_paged_walk_torch``, whose normal and
-material come from the cluster tables, and ``occluded_paged_dnf_torch``;
-kernels in ``csrc/cluster_trace_paged.cu``). ``trace_paged_dnf_torch``
-is the JAX package's order: pages in index order, each page's real
-clusters in index order, equal to ``trace_torch`` over the padded set;
-the walk gives its t bit for bit and its slot or a tied t. The other
-three walk the whole tree (``trace_tree_torch``,
-``occluded_tree_torch``) or each page's tree in page order
-(``trace_tree_paged_torch``; kernels in ``csrc/cluster_trace_tree.cu``);
-their normal is the winner's Woop w-row normalised, as in the JAX tree
-kernels.
+which all live rays step together). ``trace_paged_dnf``,
+``occluded_paged_dnf`` and ``trace_tree_paged`` walk each page's tree, a
+ray's pages nearest first (plain versions ``trace_paged_walk_torch``,
+whose normal and material come from the cluster tables,
+``occluded_paged_dnf_torch`` and ``trace_tree_paged_walk_torch``; kernels
+in ``csrc/cluster_trace_paged.cu`` and ``csrc/cluster_trace_tree.cu``).
+``trace_paged_dnf_torch`` is the JAX package's order: pages in index
+order, each page's real clusters in index order, equal to ``trace_torch``
+over the padded set; the walk gives its t bit for bit and its slot or a
+tied t. Likewise ``trace_tree_paged_torch``, each page's tree walked in
+page order, is the index-order oracle of ``trace_tree_paged``.
+``trace_tree`` and ``occluded_tree`` walk the whole tree
+(``trace_tree_torch``, ``occluded_tree_torch``; kernels in
+``csrc/cluster_trace_tree.cu``). The normal of ``trace_tree`` and
+``trace_tree_paged`` is the winner's Woop w-row normalised, as in the JAX
+tree kernels.
 """
 
 from __future__ import annotations
@@ -459,7 +462,9 @@ def trace_tree_paged_torch(clusters, pages, origin, direction, t_init,
                            stats=None):
     """Plain per-ray walk of each page's tree in page order, closest hit,
     the best t carried from page to page; page-local cluster ids become
-    global slots ``(page*P + cid)*128 + lane``. ``stats`` as in
+    global slots ``(page*P + cid)*128 + lane``. The index-order oracle of
+    ``trace_tree_paged`` (the JAX ``trace_pallas_paged``'s order), whose
+    plain version is ``trace_tree_paged_walk_torch``. ``stats`` as in
     ``trace_tree_torch``."""
     n_pages, page_size, _ = page_shape(clusters, pages)
     best_t, best_slot = _start(origin, t_init)
@@ -493,16 +498,13 @@ def _page_entry(pages, origin, inv_d):
     return torch.where((tn <= tf) & (tf > T_MIN), tn, _BIG)
 
 
-def trace_paged_walk_torch(clusters, pages, origin, direction, t_init,
-                           stats=None):
-    """Plain paged closest hit in the kernel's order: each ray walks its
-    pages nearest first (by the entry distance into each page's root box,
-    ties by page index) and stops at the first page it enters no earlier
-    than its best t; each page's tree is walked as in
-    ``trace_tree_paged_torch``, and the normal and material come from the
-    cluster tables. Leaves are real clusters only, so padding clusters are
-    never evaluated. Against ``trace_paged_dnf_torch`` (index order): t bit
-    for bit, slot equal or t tied. ``stats`` as in ``trace_tree_torch``."""
+def _walk_pages_closest(clusters, pages, origin, direction, t_init, stats):
+    """(best_t, best_slot) of the plain paged closest-hit walk in the
+    kernels' order: each ray walks its pages nearest first (by the entry
+    distance into each page's root box, ties by page index) and stops at
+    the first page it enters no earlier than its best t; each page's tree
+    is walked as in ``trace_tree_paged_torch``. Leaves are real clusters
+    only, so padding clusters are never evaluated."""
     n_pages, page_size, _ = page_shape(clusters, pages)
     best_t, best_slot = _start(origin, t_init)
     inv_d, octant = _safe_inv(direction), _octant(direction)
@@ -518,7 +520,28 @@ def trace_paged_walk_torch(clusters, pages, origin, direction, t_init,
                     best_t, best_slot, counts, page=order[:, k],
                     page_size=page_size, want=want)
     counts.record()
-    return _table_hit(clusters, best_t, best_slot)
+    return best_t, best_slot
+
+
+def trace_paged_walk_torch(clusters, pages, origin, direction, t_init,
+                           stats=None):
+    """Plain paged closest hit in the kernel's order (``_walk_pages_closest``)
+    with the normal and material from the cluster tables. Against
+    ``trace_paged_dnf_torch`` (index order): t bit for bit, slot equal or t
+    tied. ``stats`` as in ``trace_tree_torch``."""
+    return _table_hit(clusters, *_walk_pages_closest(
+        clusters, pages, origin, direction, t_init, stats))
+
+
+def trace_tree_paged_walk_torch(clusters, pages, origin, direction, t_init,
+                                stats=None):
+    """Plain per-page tree walk, closest hit, in its kernel's order: the
+    walk of ``trace_paged_walk_torch`` (pages nearest first) with the
+    normal from the winner's Woop w-row, as ``trace_tree_torch`` gives it.
+    Against ``trace_tree_paged_torch`` (pages in index order): t bit for
+    bit, slot equal or t tied. ``stats`` as in ``trace_tree_torch``."""
+    return _woop_normal_hit(clusters, *_walk_pages_closest(
+        clusters, pages, origin, direction, t_init, stats))
 
 
 def occluded_paged_dnf_torch(clusters, pages, origin, direction, t_max,
@@ -1139,14 +1162,14 @@ def occluded_tree(clusters, origin, direction, t_max):
 
 
 def trace_tree_paged(clusters, pages, origin, direction, t_init):
-    """Closest hit by the per-ray walk of each page's tree in page order
-    (see the module contract). CPU tensors take
-    ``trace_tree_paged_torch``; CUDA tensors launch
+    """Closest hit by the per-ray walk of each page's tree, pages nearest
+    first (see the module contract). CPU tensors take
+    ``trace_tree_paged_walk_torch``; CUDA tensors launch
     ``trace_tree_paged_kernel``."""
     dev = origin.device
     if dev.type == "cpu":
-        return trace_tree_paged_torch(clusters, pages, origin, direction,
-                                      t_init)
+        return trace_tree_paged_walk_torch(clusters, pages, origin,
+                                           direction, t_init)
     r, rays = _ray_args(origin, direction, t_init, "t_init")
     g, page_size, page_nodes, *tree = _page_args(clusters, pages, dev)
     woop, _, mat_tab = _hit_tables(clusters, dev)

@@ -8,7 +8,8 @@ Tolerances and why:
     forced off and the port's ``bvh.USE_NATIVE`` with it). The port drops
     only the TPU lookahead kernel's ``cand_box``;
   * the paged route against the JAX paged kernel in interpret mode
-    (``"cluster_interpret"``): the tie contract of
+    (``"cluster_interpret"``), and the per-page tree walk against the JAX
+    ``trace_pallas_paged`` in interpret mode: the tie contract of
     tests/test_clusters.py:118-145 — t within rtol 1e-6 on live lanes
     (1e-5 for the soup, as in tests/test_torch_clusters.py: XLA:CPU
     contracts multiply-adds where torch eager does not, and the soup's
@@ -349,6 +350,28 @@ def test_paged_walk_matches_jax_kernel(scenes, name):
                                      interpret=True)
     new = tct.trace_paged_walk_torch(t.clusters, t.pages,
                                      *(torch.as_tensor(a) for a in (o, d, t0)))
+    _assert_tie_contract(ref, new, t0 > 0, RTOL[name])
+
+
+@pytest.mark.parametrize("name", sorted(BUILDERS))
+def test_tree_paged_walk_matches_jax_kernel(scenes, name):
+    """The per-page tree walk in its kernel's order (pages nearest first,
+    normal from the Woop w-row) against the JAX ``trace_pallas_paged`` in
+    interpret mode, under the tie contract, on 501 rays with dead lanes.
+    The mesh has more nodes per page tree than clusters per page, the soup
+    (one cluster a page) as many."""
+    j, t = scenes[name]
+    o, d = (_rays(501, 6) if name == "mesh"
+            else _rays(501, 7, spread=1.5, center=(0, 0, 4)))
+    t0 = np.full(501, 3.0e38, np.float32)
+    t0[::11] = 0.0
+    _, page_size, _ = tct.page_shape(t.clusters, t.pages)
+    assert (t.pages.node_box.shape[2] != page_size) == (name == "mesh")
+    ref = jct.trace_pallas_paged(j.clusters, j.pages, jnp.asarray(o),
+                                 jnp.asarray(d), jnp.asarray(t0),
+                                 interpret=True)
+    new = tct.trace_tree_paged_walk_torch(
+        t.clusters, t.pages, *(torch.as_tensor(a) for a in (o, d, t0)))
     _assert_tie_contract(ref, new, t0 > 0, RTOL[name])
 
 

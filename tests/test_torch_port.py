@@ -104,6 +104,101 @@ def test_cuda_sources_are_not_built_on_import():
         assert "pathtracing_tpu_torch/.build/" in f.read().split()
 
 
+def _cuda_functions():
+    """{name: (body, is a __global__ kernel)} of every function defined in
+    the port's CUDA sources (``csrc/*.cu``, ``*.cuh``), comments
+    stripped."""
+    code = ""
+    for f in sorted(os.listdir(cuda_build.CSRC)):
+        if f.endswith((".cu", ".cuh")):
+            with open(os.path.join(cuda_build.CSRC, f)) as fh:
+                code += fh.read() + "\n"
+    code = re.sub(r"//[^\n]*|/\*.*?\*/", "", code, flags=re.S)
+
+    def close(i, open_c, close_c):
+        depth = 0
+        for j in range(i, len(code)):
+            depth += (code[j] == open_c) - (code[j] == close_c)
+            if depth == 0:
+                return j
+        raise AssertionError("unbalanced " + open_c)
+
+    out = {}
+    for m in re.finditer(r"\b(\w+)\s*\(", code):
+        if m.group(1) in ("if", "for", "while", "switch", "return",
+                          "__launch_bounds__", "sizeof"):
+            continue
+        end = close(m.end() - 1, "(", ")")
+        rest = code[end + 1:].lstrip()
+        if not rest.startswith("{"):
+            continue
+        start = len(code) - len(rest)
+        head = code[:m.start()]
+        head = head[max(head.rfind(";"), head.rfind("}")) + 1:]
+        out[m.group(1)] = (code[start:close(start, "{", "}") + 1],
+                           "__global__" in head)
+    return out
+
+
+def _calls(body, names):
+    """(position, name) of each call in ``body`` to a function of
+    ``names``, in order."""
+    return [(m.start(), m.group(1)) for m in re.finditer(
+        r"\b(\w+)\s*(?:<[^;{}()]*>)?\s*\(", body) if m.group(1) in names]
+
+
+def _reaching(funcs, target="warp_walk"):
+    """The functions whose calls reach ``target`` (``target`` included)."""
+    reach = {target}
+    while True:
+        more = {f for f, (body, _) in funcs.items()
+                if f not in reach and _calls(body, reach)}
+        if not more:
+            return reach
+        reach |= more
+
+
+WALKER_KERNELS = {"trace_dnf_kernel", "occluded_dnf_kernel",
+                  "trace_paged_dnf_kernel", "occluded_paged_dnf_kernel",
+                  "trace_tree_kernel", "occluded_tree_kernel",
+                  "trace_tree_paged_kernel"}
+
+
+def test_one_lane_cluster_walk_is_gone():
+    """No CUDA source defines or calls the one-lane walk or its one-lane
+    cluster scans: every tree walk is the warp-cooperative walker."""
+    funcs = _cuda_functions()
+    gone = {"walk_tree", "closest_in_cluster", "any_in_cluster"}
+    assert "warp_walk" in funcs
+    assert not gone & set(funcs)
+    assert [(f, c) for f, (body, _) in funcs.items()
+            for _, c in _calls(body, gone)] == []
+
+
+def test_every_tree_walking_kernel_reaches_the_warp_walker():
+    funcs = _cuda_functions()
+    kernels = {f for f, (_, is_global) in funcs.items() if is_global}
+    assert WALKER_KERNELS <= kernels
+    assert kernels & _reaching(funcs) == WALKER_KERNELS
+
+
+def test_no_return_before_the_warp_walker():
+    """Every lane of a warp must reach the walker's warp intrinsics: no
+    kernel on it, nor any function between the kernel and the walker,
+    returns before its call on the way there."""
+    funcs = _cuda_functions()
+    reach = _reaching(funcs)
+    for kernel in WALKER_KERNELS:
+        f = kernel
+        while f != "warp_walk":
+            body = funcs[f][0]
+            calls = _calls(body, reach)
+            assert calls, (kernel, f)
+            pos, callee = calls[0]
+            assert not re.search(r"\breturn\b", body[:pos]), (kernel, f)
+            f = callee
+
+
 def test_library_name_follows_source_headers_and_flags(tmp_path,
                                                        monkeypatch):
     """An edited source, shared header or flag set gives another library

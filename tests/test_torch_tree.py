@@ -9,7 +9,10 @@
     tests/test_torch_clusters.py), slot equal or t tied, normals within
     1e-4 and materials equal where the slots agree, dead lanes ignored;
     occlusion equal. Inside the port, the any-hit walk equals the capped
-    closest-hit sweep exactly.
+    closest-hit sweep exactly, and the per-page walk in its kernel's
+    order (pages nearest first, ``trace_tree_paged_walk_torch``) gives the
+    page-order walk's t bit for bit, its slot or a tied t, and the paged
+    walk's (``trace_paged_walk_torch``) t, slot and material bit for bit.
 (b) An unpaged scene past ``DNF_MAX_CLUSTERS`` (the budget monkeypatched
     low in both packages' modules, test only) routes to the tree walk in
     both packages with the same hits, and renders as the JAX package does.
@@ -210,6 +213,71 @@ def test_trace_tree_paged_torch_matches_trace_pallas_paged(paged):
     _assert_tie_contract(ref, new, t0 > 0, 1e-6)
 
 
+def _capped_waves(n, seed):
+    """A closest-hit wave of ``n`` rays (every 11th lane dead) and the same
+    rays capped at t = 1.5, the capped lanes' pages cut short."""
+    o, d, t0 = (torch.as_tensor(a) for a in _rays(n, seed))
+    return [(o, d, t0), (o, d, torch.where(t0 > 0, 1.5, 0.0))]
+
+
+@pytest.mark.parametrize("wave", ["closest", "capped"])
+def test_tree_paged_walk_matches_page_order_walk(paged, wave):
+    """The per-page walk in its kernel's order (pages nearest first)
+    against the page-order oracle ``trace_tree_paged_torch``, on 601 rays
+    (not a multiple of the warp) with dead lanes: t bit for bit, slot equal
+    or t tied, normal (the Woop w-row) and material bit for bit where the
+    slots agree. The fixture's page trees have more nodes than its pages
+    have clusters: the kernel's C interface takes (n_pages, page_nodes,
+    page_size) and its walker (n_pages, page_size, page_nodes)."""
+    _, t = paged
+    _, page_size, _ = tct.page_shape(t.clusters, t.pages)
+    assert t.pages.node_box.shape[2] != page_size
+    o, d, cap = _capped_waves(601, 13)[["closest", "capped"].index(wave)]
+    ref = tct.trace_tree_paged_torch(t.clusters, t.pages, o, d, cap)
+    new = tct.trace_tree_paged_walk_torch(t.clusters, t.pages, o, d, cap)
+    assert torch.equal(ref[0], new[0])
+    same = ref[1] == new[1]
+    assert bool((same | (ref[0] == new[0])).all())
+    assert int((same & (ref[1] >= 0)).sum()) > 20
+    assert torch.equal(ref[2][same], new[2][same])
+    assert torch.equal(ref[3][same], new[3][same])
+    assert bool((new[1][cap <= 0] == -1).all())
+    assert torch.equal(new[0][cap <= 0], cap[cap <= 0])
+
+
+def test_tree_paged_walk_is_the_paged_walk_with_woop_normals(paged):
+    """Row 9's plain version and row 6's share one walk: the same t, slot,
+    material and work; only the normal's source differs (the winner's Woop
+    w-row against the table)."""
+    _, t = paged
+    for o, d, cap in _capped_waves(601, 14):
+        ws, ps = {}, {}
+        tree = tct.trace_tree_paged_walk_torch(t.clusters, t.pages, o, d,
+                                               cap, stats=ws)
+        flat = tct.trace_paged_walk_torch(t.clusters, t.pages, o, d, cap,
+                                          stats=ps)
+        for k in (0, 1, 3):
+            assert torch.equal(tree[k], flat[k])
+        assert ws == ps and ws["cluster_evals"] > 0
+        hit = tree[1] >= 0
+        woop_hit = tct._woop_normal_hit(t.clusters, tree[0], tree[1])
+        assert torch.equal(tree[2], woop_hit[2])
+        assert torch.allclose(tree[2][hit], flat[2][hit], atol=1e-5)
+
+
+def test_tree_paged_wrapper_takes_the_nearest_first_walk(paged):
+    """``trace_tree_paged`` on CPU tensors is ``trace_tree_paged_walk_torch``
+    bit for bit and launches nothing."""
+    _, t = paged
+    o, d, t0 = _capped_waves(333, 15)[0]
+    before = dict(tct.LAUNCHES)
+    got = tct.trace_tree_paged(t.clusters, t.pages, o, d, t0)
+    assert tct.LAUNCHES == before
+    for a, b in zip(got, tct.trace_tree_paged_walk_torch(t.clusters, t.pages,
+                                                         o, d, t0)):
+        assert torch.equal(a, b)
+
+
 def test_tree_walks_accept_a_paged_flat_set(paged):
     """The flat set of a paged scene keeps a global tree over the real
     clusters in page order: the whole-tree walk and the per-page walks
@@ -227,7 +295,7 @@ def test_tree_walks_accept_a_paged_flat_set(paged):
 @pytest.mark.parametrize("name", [
     "trace_torch", "trace_flat_walk_torch", "trace_paged_dnf_torch",
     "trace_paged_walk_torch", "trace_tree_torch", "trace_tree_paged_torch",
-    "occluded_torch",
+    "trace_tree_paged_walk_torch", "occluded_torch",
     "occluded_paged_dnf_torch", "occluded_tree_torch"])
 def test_needed_evals_bounds_every_visiting_order(paged, name):
     """``chip_smoke.needed_evals``, the count behind the traversal kernels'
