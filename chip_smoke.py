@@ -55,29 +55,47 @@ Phases, in order; any failure exits non-zero:
                  ``trace_tree_paged_torch``), on 65,549 rays drawn from
                  the wave (the plain versions synchronise with the host
                  once per cluster or walk step).
+               * light transport waves: the flat any hit on envmap_demo's
+                 environment-NEE shadow wave (toward t = 1e7) and on
+                 spotlight_demo's delta-light shadow wave, both from the
+                 scenes' own first bounce over the whole frame less 37
+                 with every 11th lane dead; the flat closest hit on
+                 sphere_demo's camera wave (a one-cluster flat set); the
+                 gather on the 16,588,800 candidate indices of a real RIS
+                 pick (M = 8) on many_lights_demo. Held as above, timed,
+                 with their bounds.
                Each traversal kernel's bound counts the cluster
                evaluations its wave needs in any visiting order
                (``needed_evals``, a slab-test pass over the whole wave
                against the final t), so kernels of one query share it.
   4. renders — the flagship (cornell_mesh(6)), instanced_demo (gradient
-               sky), many_lights_demo, cornell_mesh(8) (paged) and the
+               sky), many_lights_demo, cornell_mesh(8) (paged), the
                same triangles unpaged in a scene without pages (which
-               routes to the tree walks), each at 1920x1080, depth 8, NEE
-               with MIS, LD sampler, 1 spp per progressive step, seed 0:
-               one warm-up step and 3 timed steps through
-               ``progressive.render_step``, then ``resolve`` and one
-               profiled step. Every kernel's launch count is set to 0 just
-               before a scene's timed steps and read just after: the
-               flagship must launch the flat pair, the instanced scene the
-               instanced pair and no flat kernel, the many-light scene the
-               gather, cornell_mesh(8) the paged pair (closest hit and any
-               hit) and no flat kernel, the unpaged one both tree walks
-               and neither the flat nor the paged kernels.
+               routes to the tree walks), the nine scenes of the light
+               transport (sphere_demo, veach_mis, checker_demo,
+               glass_demo, frosted_demo, prism_demo, envmap_demo,
+               principled_demo, spotlight_demo, each with its preferred
+               background) and many_lights_demo with RIS (M = 8), each at
+               1920x1080, depth 8, NEE with MIS, LD sampler, 1 spp per
+               progressive step, seed 0: one warm-up step and 3 timed
+               steps through ``progressive.render_step``, then
+               ``resolve`` and one profiled step. Every kernel's launch
+               count is set to 0 just before a scene's timed steps and
+               read just after: the flagship must launch the flat pair,
+               the instanced scene the instanced pair and no flat kernel,
+               the many-light scene the gather, cornell_mesh(8) the paged
+               pair (closest hit and any hit) and no flat kernel, the
+               unpaged one both tree walks and neither the flat nor the
+               paged kernels, the nine new scenes the flat pair and no
+               other kernel, the RIS render the flat pair and the gather
+               and no other.
   5. check   — each image is finite with a plausible mean, and a small
                render of each scene through the kernels agrees with the
                same render through the plain versions: 64x64 for the
-               earlier scenes and for cornell_mesh(3) paged by 16; 32x32
-               at depth 4 for the unpaged cornell_mesh(8).
+               earlier and the new scenes and for cornell_mesh(3) paged by
+               16; 32x32 at depth 4 for the unpaged cornell_mesh(8).
+  6. bench   — ``python -m pathtracing_tpu_torch.bench`` in quick mode as
+               a subprocess; its JSON line is required and printed.
 
 It prints one JSON line per kernel result, a ``{"kernels": [...]}`` line
 with all ten kernels, the card's name and power limit, and as its last
@@ -88,6 +106,7 @@ prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -132,6 +151,16 @@ BIG_SUBSET = 65_549          # rays of a big-scene wave held against plain
 FORCED_PAGE = 1536           # cornell_mesh(8) in 10 pages
 # Tree-node bytes: box 24, meta 8, the 16 octant links 64.
 NODE_BYTES = 96
+# The scenes of the light-transport slice, rendered at full size, and the
+# RIS candidate count of the many-light render through RIS.
+NEW_SCENES = ("sphere_demo", "veach_mis", "checker_demo", "glass_demo",
+              "frosted_demo", "prism_demo", "envmap_demo", "principled_demo",
+              "spotlight_demo")
+RIS_M = 8
+# Image means below 0.05 that are the scene's own: spotlight_demo is lit
+# by three delta lights alone (the JAX package's CPU render of it has mean
+# 0.0295 at 24x24, 3 spp, seed 0).
+MIN_MEAN = {"spotlight_demo": 0.01}
 # The design of the big-scene kernels on the shared walker
 # (csrc/cluster_walk.cuh), and the plain versions they are held to bit for
 # bit, named in the kernels line.
@@ -255,6 +284,63 @@ def make_waves(scene, camera, config, pix=None, bounce=True):
         waves["bounce"] = (o1, d1, kill_lanes(torch.where(act1, big, 0.0)))
         waves["bounce_shadow"] = shadow(o1, d1, act1, 1)
     return waves
+
+
+def light_waves(scene, camera, config):
+    """The shadow waves of the light-transport branches from a scene's own
+    first bounce at depth 0, as ``shading.bounce_batch`` draws them:
+    ``env_shadow`` (environment NEE toward t = 1e7, scenes with ``env``)
+    and ``delta_shadow`` (delta-light NEE, scenes with ``delta``), each
+    from the camera hits of the whole frame less 37 with every 11th lane
+    dead; the lanes ``bounce_batch`` would not trace get a zero cap.
+    Returns {name: (origin, direction, cap)}."""
+    import torch
+
+    from pathtracing_tpu_torch.models import scene as scene_mod
+    from pathtracing_tpu_torch.models import shading
+    from pathtracing_tpu_torch.ops import envmap, lights, linalg, materials
+    from pathtracing_tpu_torch.ops import rng
+
+    dev = scene.tri_v0.device
+    pix = torch.arange(WIDTH * HEIGHT - 37, dtype=torch.int64, device=dev)
+    keys, o0, d0 = shading.camera_sample(camera, config, config.seed, pix, 0)
+    hit = scene_mod.intersect_batch(scene, o0, d0, "cluster_cuda")
+    mtype = materials.gather(scene.material_table, hit.mat_id)[0]
+    lit = hit.valid & materials.is_nee_type(mtype)
+    waves = {}
+    if scene.env is not None:
+        ue = rng.uniform(rng.stream_key(keys, 0, rng.STREAM_ENV), 2)
+        wi, pdf = envmap.sample(scene.env, ue[:, 0], ue[:, 1])
+        cand = lit & (linalg.dot(hit.normal, wi) > 1e-6) & (pdf > 1e-12)
+        waves["env_shadow"] = (hit.position, wi, kill_lanes(
+            torch.where(cand, shading.ENV_SHADOW_T, 0.0)))
+    if scene.delta is not None:
+        ud = rng.uniform(rng.stream_key(keys, 0, rng.STREAM_DELTA))
+        wi, t_sh, _ = lights.sample_delta(scene.delta, ud, hit.position)
+        cand = lit & (linalg.dot(hit.normal, wi) > 1e-6)
+        waves["delta_shadow"] = (hit.position, wi,
+                                 kill_lanes(torch.where(cand, t_sh, 0.0)))
+    return waves
+
+
+def ris_candidates(scene, camera, config, m):
+    """The light-pick indices of a real RIS pick at depth 0: each camera
+    hit's ``m`` candidates from the first ``3m`` NEE uniforms (candidate
+    0's from the LD draw under the LD sampler), ``lights.pick`` of their
+    first coordinate: (R·m,) int64."""
+    import torch
+
+    from pathtracing_tpu_torch.models import shading
+    from pathtracing_tpu_torch.ops import lights, rng
+
+    dev = scene.tri_v0.device
+    pix = torch.arange(WIDTH * HEIGHT, dtype=torch.int64, device=dev)
+    keys, _, _ = shading.camera_sample(camera, config, config.seed, pix, 0)
+    uu = rng.uniform(rng.stream_key(keys, 0, rng.STREAM_NEE), 3 * m + 1)
+    u0 = uu[:, :3 * m].reshape(-1, m, 3)[:, :, 0].clone()
+    if config.sampler == "ld":
+        u0[:, 0] = rng.ld_scalar(config.seed, pix, 0, rng.STREAM_NEE)
+    return lights.pick(scene.lights, u0.reshape(-1))
 
 
 def make_soup(n_tris=160_000, n_rays=(1 << 18) + 13, seed=0):
@@ -689,11 +775,13 @@ def launch_counts():
     return {**ct.LAUNCHES, **pgather.LAUNCHES}
 
 
-def timed_render(label, scene, camera, config, card, kernel_names):
+def timed_render(label, scene, camera, config, card, kernel_names,
+                 min_mean=0.05):
     """One warm-up step, then TIMED_STEPS steps through
     ``progressive.render_step`` with every launch count set to 0 just
-    before and read just after, ``resolve``, and one profiled step.
-    Returns (image, launches)."""
+    before and read just after, ``resolve``, and one profiled step. The
+    image must be finite with a mean in (``min_mean``, 5). Returns (image,
+    launches)."""
     import torch
 
     from pathtracing_tpu_torch.models import progressive
@@ -737,13 +825,25 @@ def timed_render(label, scene, camera, config, card, kernel_names):
         raise SmokeFailure(f"{label}: image has non-finite values")
     mean = float(image.mean())
     print(f"{label}: image mean {mean:.6f}", flush=True)
-    if not 0.05 < mean < 5.0:
-        raise SmokeFailure(f"{label}: image mean {mean} outside (0.05, 5)")
+    if not min_mean < mean < 5.0:
+        raise SmokeFailure(f"{label}: image mean {mean} outside "
+                           f"({min_mean}, 5)")
     return image, launches
 
 
+def check_routes(label, launches, used):
+    """Fail unless every kernel in ``used`` was launched and no other."""
+    for name, n in launches.items():
+        if name in used and n <= 0:
+            raise SmokeFailure(f"the {label} render launched no {name} "
+                               "kernel")
+        if name not in used and n != 0:
+            raise SmokeFailure(f"the {label} render launched the {name} "
+                               "kernel")
+
+
 def small_render_check(label, scene, plain_scene, cam_cfg, background,
-                       size=64, depth=DEPTH):
+                       size=64, depth=DEPTH, nee_candidates=1):
     """A ``size``² render at ``depth`` (2 spp) through the kernels against
     the same render through the plain versions (``plain_scene`` with
     ``traversal="cluster_torch"``). Both routes compute the same t bit for
@@ -762,7 +862,8 @@ def small_render_check(label, scene, plain_scene, cam_cfg, background,
     for trav, sc in (("cluster_cuda", scene), ("cluster_torch", plain_scene)):
         cfg = RenderConfig(width=size, height=size, samples_per_pixel=2,
                            max_depth=depth, seed=0, traversal=trav,
-                           background=background)
+                           background=background,
+                           nee_candidates=nee_candidates)
         ct.reset_launches()
         pgather.reset_launches()
         imgs.append(progressive.render_once(sc, cam, cfg))
@@ -777,6 +878,32 @@ def small_render_check(label, scene, plain_scene, cam_cfg, background,
         raise SmokeFailure(f"small render of {label} through the kernels "
                            "disagrees with the plain versions")
     return launches
+
+
+def bench_check():
+    """``python -m pathtracing_tpu_torch.bench`` in quick mode
+    (``BENCH_QUICK=1``), as a subprocess: its last line must be the JSON
+    object with ``metric``, ``value``, ``unit`` and ``vs_baseline`` null."""
+    t = phase("bench")
+    env = dict(os.environ, BENCH_QUICK="1")
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-m", "pathtracing_tpu_torch.bench"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        raise SmokeFailure(f"the bench module exited {out.returncode}: "
+                           f"{out.stderr[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError) as e:
+        raise SmokeFailure(f"the bench module printed no JSON line: {e}; "
+                           f"{out.stdout[-2000:]}") from e
+    if (set(line) != {"metric", "value", "unit", "vs_baseline"}
+            or line["vs_baseline"] is not None or not line["value"] > 0):
+        raise SmokeFailure(f"the bench module's line is malformed: {line}")
+    print(f"bench quick run: {time.perf_counter() - t:.2f} s", flush=True)
+    return line
 
 
 def phase(name):
@@ -1188,6 +1315,44 @@ def run() -> dict:
                                  device=DEVICE)
     gather_res = gather_checks(lights_scene, config, failures)
 
+    t = phase("kernels vs plain: light transport waves")
+    new = {name: scenes.get_scene(name, device=DEVICE)
+           for name in NEW_SCENES}
+    new_cams = {name: build_camera(cc, WIDTH / HEIGHT, device=DEVICE)
+                for name, (_, cc) in new.items()}
+    print(f"the nine new scenes built in {time.perf_counter() - t:.2f} s",
+          flush=True)
+    for name in ("envmap_demo", "spotlight_demo"):
+        sc = new[name][0]
+        _, _, ok, op, _, occ_oracle = flat_fns(sc.clusters)
+        lt_waves = light_waves(sc, new_cams[name],
+                               config_for(scenes.preferred_background(name)))
+        for wname, wave in lt_waves.items():
+            res = check_occluded(ok, op, wave, reference=occ_oracle,
+                                 boxes=(sc.clusters.aabb_min,
+                                        sc.clusters.aabb_max))
+            res["n_clusters"] = int(sc.clusters.woop.shape[0])
+            results["occluded"][f"{name}:{wname}"] = res
+            report("occluded_dnf", res, failures, wave=wname, scene=name)
+        del lt_waves
+    sc = new["sphere_demo"][0]
+    tk, tp, _, _, oracle, _ = flat_fns(sc.clusters)
+    sphere_waves = make_waves(sc, new_cams["sphere_demo"],
+                              config_for("gradient"), bounce=False)
+    res = check_trace(tk, tp, sphere_waves["camera"], strict=True,
+                      normal_tol=0.0, reference=oracle,
+                      boxes=(sc.clusters.aabb_min, sc.clusters.aabb_max))
+    res["n_clusters"] = int(sc.clusters.woop.shape[0])
+    results["trace"]["sphere_demo:camera"] = res
+    report("trace_dnf", res, failures, wave="camera", scene="sphere_demo",
+           clusters=res["n_clusters"])
+    del sphere_waves
+    ris_idx = ris_candidates(lights_scene, lights_camera, config, RIS_M)
+    ris_res = check_gather(lights_scene.lights.packed, ris_idx,
+                           f"many_lights RIS candidates (M = {RIS_M})",
+                           failures, timed=True)
+    del ris_idx
+
     big = big_scene_checks(camera, config, failures)
     if failures:
         raise SmokeFailure("kernel disagrees with its plain version: "
@@ -1248,7 +1413,35 @@ def run() -> dict:
             raise SmokeFailure(f"the tree-route render launched the {name} "
                                "kernel")
 
+    flat_routes = ("trace", "occluded")
+    new_launches = {}
+    for name in NEW_SCENES:
+        sc, _ = new[name]
+        _, la = timed_render(name, sc, new_cams[name],
+                             config_for(scenes.preferred_background(name)),
+                             card, flat_names,
+                             min_mean=MIN_MEAN.get(name, 0.05))
+        check_routes(name, la, flat_routes)
+        new_launches[name] = la
+    ris_config = dataclasses.replace(config, nee_candidates=RIS_M)
+    ris_label = f"many_lights_demo RIS M={RIS_M}"
+    _, ris_launches = timed_render(ris_label, lights_scene, lights_camera,
+                                   ris_config, card,
+                                   flat_names + ("gather_rows_kernel",))
+    check_routes(ris_label, ris_launches, flat_routes + ("gather_rows",))
+
     phase("check")
+    for name in NEW_SCENES:
+        sc, cc = new[name]
+        check_routes(f"small {name}", small_render_check(
+            name, sc, sc, cc, scenes.preferred_background(name)),
+            flat_routes)
+    check_routes(f"small {ris_label}", small_render_check(
+        ris_label, lights_scene, lights_scene._replace(
+            lights=lights_scene.lights._replace(packed=None)),
+        lights_cam_cfg, "black", nee_candidates=RIS_M),
+        flat_routes + ("gather_rows",))
+    del new
     small_scene, _ = scenes.cornell_mesh(3, device=DEVICE)
     small_render_check("cornell_mesh(3)", small_scene, small_scene, cam_cfg,
                        "black")
@@ -1276,26 +1469,34 @@ def run() -> dict:
         raise SmokeFailure("the small tree-route render left the tree "
                            "kernels")
 
+    bench = bench_check()
+
     src = "pathtracing_tpu_torch/csrc/"
     main_inst = {"trace": "static:camera", "occluded": "static:camera_shadow"}
+    # Launches per render of 3 timed steps, in the scenes beside the main
+    # path's (the flagship for rows 1-2, many_lights_demo for row 3).
+    by_scene = {key: {**{name: la[key] for name, la in new_launches.items()},
+                      ris_label: ris_launches[key]}
+                for key in ("trace", "occluded", "gather_rows")}
     kernels = [
         kernel_entry(
             "trace_dnf", "trace_dnf_kernel", src + "cluster_trace.cu",
             TPU_SOURCE + ":1153", launches["trace"], results["trace"],
             "camera",
-            lambda r: bound_ms(r["needed_evals"], r["rays"], n_clusters,
-                               52),
+            lambda r: bound_ms(r["needed_evals"], r["rays"],
+                               r.get("n_clusters", n_clusters), 52),
             plain="trace_flat_walk_torch", vs_trace_torch="tie contract held",
             design=WALK_DESIGN + " over the flat set's tree; table "
-            "normal and material"),
+            "normal and material", launches_by_scene=by_scene["trace"]),
         kernel_entry(
             "occluded_dnf", "occluded_dnf_kernel", src + "cluster_trace.cu",
             TPU_SOURCE + ":1266", launches["occluded"], results["occluded"],
             "camera_shadow",
-            lambda r: bound_ms(r["needed_evals"], r["rays"], n_clusters,
-                               29),
+            lambda r: bound_ms(r["needed_evals"], r["rays"],
+                               r.get("n_clusters", n_clusters), 29),
             plain="occluded_tree_torch", vs_occluded_torch="equal",
-            design=WALK_DESIGN + " over the flat set's tree, any hit"),
+            design=WALK_DESIGN + " over the flat set's tree, any hit",
+            launches_by_scene=by_scene["occluded"]),
     ]
     inst_designs = {
         "trace": "two-level sweep: placement boxes culled first, "
@@ -1329,6 +1530,13 @@ def run() -> dict:
         "library_ms": gather_res["library_ms"],
         "library": "torch.index_select", "shape": gather_res["shape"],
         "bytes": gather_res["bytes"], "vs_plain": "agree",
+        "max_abs_err_ris": ris_res["max_abs_err"],
+        "waves": {name: {k: r[k] for k in ("shape", "ms", "plain_ms",
+                                             "library_ms", "bound_ms",
+                                             "bytes", "mismatches")}
+                  for name, r in (("pick", gather_res),
+                                  ("ris_candidates", ris_res))},
+        "launches_by_scene": by_scene["gather_rows"],
     })
     kernels += big_entries(big, big_launches, tree_launches)
     for entry in kernels:
@@ -1336,6 +1544,7 @@ def run() -> dict:
                           if k.split("<")[0] == entry["kernel"]}
         if not entry["ptxas"]:
             raise SmokeFailure(f"no ptxas -v report for {entry['kernel']}")
+    print("bench " + json.dumps(bench), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,8 +2,11 @@
 ``models/megakernel.py``, block mode): every bounce of a sample over a
 block of image rows, as one batched wave per bounce.
 
-Forward path tracing with emissive-surface lighting, NEE with MIS,
-cosine/GGX BSDF sampling and Russian roulette from ``rr_start_depth``.
+Forward path tracing with emissive-surface, environment and delta
+lighting, NEE with MIS (optionally RIS light picks), BSDF sampling and
+Russian roulette from ``rr_start_depth``. Scenes with absorbing
+dielectrics (``mat_absorb``) carry each path's interior medium in the
+state.
 Pixel and sample ids are global, so any chunking of the rows gives the
 same per-pixel results bit for bit. The scattered-rows and
 scattered-pixels modes of the JAX engine (the adaptive schedulers' waves)
@@ -115,7 +118,9 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
 
     n = pixel_index.shape[0]
     dev = pixel_index.device
-    # (radiance, throughput, o, d, active, prev_pdf, prev_nee)
+    # (radiance, throughput, o, d, active, prev_pdf, prev_nee[, medium]):
+    # scenes with absorbing dielectrics carry each path's interior sigma_a
+    # (zeros: vacuum), and the compaction permutes it with the rest.
     state = (
         torch.zeros((n, 3), dtype=torch.float32, device=dev),
         torch.ones((n, 3), dtype=torch.float32, device=dev),
@@ -124,6 +129,8 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
         torch.zeros(n, dtype=torch.float32, device=dev),
         torch.zeros(n, dtype=torch.bool, device=dev),
     )
+    if scene.mat_absorb is not None:
+        state += (torch.zeros((n, 3), dtype=torch.float32, device=dev),)
     per_path = [keys, ld_nee, ld_scatter, times]
 
     def bounces(state, per_path, start, stop):
@@ -136,12 +143,13 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
                 prev_nee=state[6], ld_nee=ldn, ld_scatter=lds,
                 nee_candidates=config.nee_candidates,
                 return_shadow_count=True, time=tm,
+                medium=state[7] if len(state) > 7 else None,
             )
             if stats is not None:
                 stats["segments"] = stats.get("segments", 0) + state[4].sum()
                 stats["shadow_segments"] = (stats.get("shadow_segments", 0)
-                                            + out[7])
-            state = out[:7]
+                                            + out[-1])
+            state = out[:-1]
         return state
 
     dnf_route = (scene_mod.uses_dnf(scene)

@@ -1,7 +1,8 @@
 """Scene representation (the JAX package's ``models/scene.py``, as far as
 the ported paths need it): spheres, triangles, cluster tables, shared-
-geometry instances, the material table and the area-light table, as
-tensors on one device.
+geometry instances, the material table with its optional columns, the
+area-light table, delta lights and the environment map, as tensors on
+one device.
 
 Layout invariants (as in the JAX package):
   * ≥ 1 sphere and ≥ 1 triangle always exist (degenerate, mat_id 0, never
@@ -30,7 +31,8 @@ import torch
 
 from pathtracing_tpu_torch.ops import bvh as bvh_ops
 from pathtracing_tpu_torch.ops import clusters as cluster_ops
-from pathtracing_tpu_torch.ops import cluster_trace, intersect, lights, linalg
+from pathtracing_tpu_torch.ops import cluster_trace, envmap, intersect
+from pathtracing_tpu_torch.ops import lights, linalg
 from pathtracing_tpu_torch.ops import materials
 from pathtracing_tpu_torch.utils.config import resolve_device
 
@@ -65,6 +67,25 @@ class Scene(NamedTuple):
     # HBM pages (ops.clusters.PageSet) of a scene past the flat kernels'
     # budget; ``clusters`` is then in page order, padded to whole pages.
     pages: cluster_ops.PageSet = None
+    # Image-based environment light (ops.envmap.EnvMap): escaped rays look
+    # it up and NEE samples it. None falls back to the static background.
+    env: envmap.EnvMap = None
+    # Point, spot and directional lights (ops.lights.DeltaLights), lit by
+    # NEE alone. None for scenes without them.
+    delta: lights.DeltaLights = None
+    # (K, 3) f32 interior Beer–Lambert sigma_a of dielectrics; None unless
+    # some material absorbs (the megakernel then carries a per-path
+    # medium).
+    mat_absorb: torch.Tensor = None
+    # (K,) f32 rough dielectric GGX alpha (mat_param is its IOR); None
+    # unless some material is TYPE_ROUGH_DIELECTRIC.
+    mat_param2: torch.Tensor = None
+    # (K,) f32 IOR spread (blue − red) of dispersive dielectrics; None
+    # unless some dielectric disperses.
+    mat_disp: torch.Tensor = None
+    # (K,) f32 GGX anisotropy in [0, 1); None unless some material is
+    # anisotropic.
+    mat_aniso: torch.Tensor = None
 
     @property
     def material_table(self):
@@ -87,22 +108,16 @@ class Hit(NamedTuple):
 # Scene features of the JAX package that the port does not carry yet,
 # with the ROADMAP queue-A item that ports each.
 _UNPORTED_FIELDS = {
-    "env": "item 11 (envmap)",
     "attr_uv": "item 12 (surface attributes)",
     "attr_shn": "item 12 (surface attributes)",
     "slot_to_tri": "item 12 (surface attributes)",
     "attr_pack": "item 12 (surface attributes)",
     "textures": "item 12 (surface attributes)",
     "mat_tex": "item 12 (surface attributes)",
-    "mat_absorb": "item 11 (materials)",
     "mat_interior": "item 16 (media)",
     "fog": "item 16 (media)",
-    "mat_param2": "item 11 (materials)",
     "mat_ntex": "item 12 (surface attributes)",
-    "mat_disp": "item 11 (materials)",
     "mat_mrtex": "item 12 (surface attributes)",
-    "mat_aniso": "item 11 (materials)",
-    "delta": "item 11 (delta lights)",
     "vol": "item 16 (media)",
 }
 
@@ -187,7 +202,22 @@ def scene_from_numpy(arrays, device) -> Scene:
     light_cols = {n: dev(li[n], torch.float32)
                   for n in lights.LightTable._fields
                   if n not in ("kind", "packed")}
+    env = delta = None
+    if arrays.get("env") is not None:
+        ev = _fields(arrays["env"])
+        env = envmap.EnvMap(**{n: dev(ev[n], torch.float32)
+                               for n in envmap.EnvMap._fields})
+    if arrays.get("delta") is not None:
+        dl = _fields(arrays["delta"])
+        delta = lights.DeltaLights(**{
+            n: dev(dl[n], torch.int32 if n == "kind" else torch.float32)
+            for n in lights.DeltaLights._fields})
     return Scene(
+        env=env, delta=delta,
+        mat_absorb=opt(arrays, "mat_absorb", torch.float32),
+        mat_param2=opt(arrays, "mat_param2", torch.float32),
+        mat_disp=opt(arrays, "mat_disp", torch.float32),
+        mat_aniso=opt(arrays, "mat_aniso", torch.float32),
         mat_metallic=opt(arrays, "mat_metallic", torch.float32),
         mat_clearcoat=opt(arrays, "mat_clearcoat", torch.float32),
         instances=instances, pages=pages,
@@ -215,17 +245,84 @@ class SceneBuilder:
         self._mat = []         # (type, albedo, param, emit)
         self._mat_metallic = []  # per-material metallic (principled)
         self._mat_cc = []      # per-material (clearcoat, coat roughness)
+        self._mat_absorb = []  # per-material interior sigma_a (r, g, b)
+        self._mat_param2 = []  # per-material second scalar (rough alpha)
+        self._mat_disp = []    # per-material IOR dispersion (blue - red)
+        self._mat_aniso = []   # per-material GGX anisotropy [0, 1)
         # (v0, e1, e2, mats, [(3,4) transforms], [imat], [motion (3,4)])
         self._protos = []
+        self._delta = []       # delta-light spec dicts (ops.lights)
+        self._env = None       # (H, W, 3) texels or an ops.envmap.EnvMap
+
+    # -- lights ------------------------------------------------------------
+    def point_light(self, position, intensity) -> None:
+        """Zero-extent point emitter: ``intensity`` is radiant W/sr
+        (received radiance falls off as 1/d²)."""
+        self._delta.append({
+            "type": "point", "position": tuple(map(float, position)),
+            "intensity": tuple(map(float, intensity)),
+        })
+
+    def spot_light(self, position, direction, intensity,
+                   inner_degrees: float = 20.0,
+                   outer_degrees: float = 30.0) -> None:
+        """Point emitter restricted to a cone around ``direction`` with a
+        smoothstep falloff between the inner and outer half-angles."""
+        if inner_degrees > outer_degrees:
+            raise ValueError("spot inner cone must be <= outer cone")
+        self._delta.append({
+            "type": "spot", "position": tuple(map(float, position)),
+            "direction": tuple(map(float, direction)),
+            "intensity": tuple(map(float, intensity)),
+            "inner_degrees": float(inner_degrees),
+            "outer_degrees": float(outer_degrees),
+        })
+
+    def directional_light(self, direction, irradiance) -> None:
+        """Sun-style parallel light: ``direction`` is the travel direction,
+        ``irradiance`` the power received by a surface facing it (no
+        falloff; shadows query toward t = 1e7)."""
+        self._delta.append({
+            "type": "directional",
+            "direction": tuple(map(float, direction)),
+            "irradiance": tuple(map(float, irradiance)),
+        })
+
+    def environment(self, texels_or_envmap) -> None:
+        """Attach an image-based environment light: a (H, W, 3) lat-long
+        radiance grid (its tables are built with the scene) or a built
+        ``ops.envmap.EnvMap`` (moved to the scene's device)."""
+        self._env = (texels_or_envmap
+                     if isinstance(texels_or_envmap, envmap.EnvMap)
+                     else np.asarray(texels_or_envmap, np.float32))
 
     # -- materials ---------------------------------------------------------
     def add_material(self, mtype, albedo=(0.0, 0.0, 0.0), param=0.0,
-                     emit=(0.0, 0.0, 0.0), metallic=0.0, clearcoat=0.0,
-                     clearcoat_roughness=0.1) -> int:
+                     emit=(0.0, 0.0, 0.0), absorption=(0.0, 0.0, 0.0),
+                     param2=0.0, dispersion=0.0, metallic=0.0,
+                     clearcoat=0.0, clearcoat_roughness=0.1,
+                     anisotropy=0.0, scattering=0.0) -> int:
+        """``absorption``: interior Beer–Lambert sigma_a per channel (on
+        dielectrics: paths inside lose exp(−sigma_a · distance));
+        ``param2``: the rough dielectric's GGX alpha; ``dispersion``: the
+        IOR spread of a smooth dielectric; ``anisotropy`` in [0, 1): the
+        GGX conductor's. Interior scattering (``scattering`` > 0) is not
+        ported yet (ROADMAP queue A item 16)."""
+        if scattering > 0.0:
+            raise NotImplementedError(
+                "interior scattering (subsurface media) is not ported yet "
+                "(ROADMAP queue A item 16)"
+            )
+        if not 0.0 <= anisotropy < 1.0:
+            raise ValueError("anisotropy must be in [0, 1)")
         self._mat.append((int(mtype), tuple(albedo), float(param),
                           tuple(emit)))
+        self._mat_absorb.append(tuple(float(x) for x in absorption))
+        self._mat_param2.append(float(param2))
+        self._mat_disp.append(float(dispersion))
         self._mat_metallic.append(float(metallic))
         self._mat_cc.append((float(clearcoat), float(clearcoat_roughness)))
+        self._mat_aniso.append(float(anisotropy))
         return len(self._mat) - 1
 
     def lambertian(self, albedo) -> int:
@@ -234,12 +331,14 @@ class SceneBuilder:
     def metal(self, albedo, fuzz=0.0) -> int:
         return self.add_material(materials.TYPE_METAL, albedo, fuzz)
 
-    def ggx(self, f0, roughness=0.1) -> int:
+    def ggx(self, f0, roughness=0.1, anisotropy=0.0) -> int:
         """Microfacet conductor: f0 = Fresnel normal reflectance,
         roughness = GGX alpha. Unlike ``metal`` it has a real pdf, so
-        glossy vertices take part in NEE/MIS. Anisotropy is not ported yet
-        (ROADMAP queue A item 11)."""
-        return self.add_material(materials.TYPE_GGX, f0, roughness)
+        glossy vertices take part in NEE/MIS. ``anisotropy`` in [0, 1)
+        stretches the NDF along the surface tangent (Disney aspect
+        convention): brushed-metal highlights."""
+        return self.add_material(materials.TYPE_GGX, f0, roughness,
+                                 anisotropy=anisotropy)
 
     def principled(self, base_color, metallic=0.0, roughness=0.5,
                    clearcoat=0.0, clearcoat_roughness=0.1) -> int:
@@ -256,14 +355,36 @@ class SceneBuilder:
             clearcoat_roughness=clearcoat_roughness,
         )
 
-    def dielectric(self, ior=1.5, tint=(1.0, 1.0, 1.0)) -> int:
-        """Smooth dielectric; absorption, roughness, dispersion and
-        scattering are not ported yet (ROADMAP queue A items 11, 16)."""
-        return self.add_material(materials.TYPE_DIELECTRIC, tint, ior)
+    def dielectric(self, ior=1.5, tint=(1.0, 1.0, 1.0),
+                   absorption=(0.0, 0.0, 0.0), roughness=0.0,
+                   dispersion=0.0, scattering=0.0) -> int:
+        """``absorption``: interior sigma_a (Beer–Lambert), e.g.
+        (0.1, 2.0, 2.0) is red glass. ``roughness`` > 0 selects the
+        microfacet (Walter 2007) glass with GGX alpha = roughness.
+        ``dispersion``: IOR spread blue − red, smooth dielectrics only;
+        a path splits to one RGB channel at its first dispersive hit.
+        ``scattering`` (interior media) is not ported yet (ROADMAP queue A
+        item 16)."""
+        if roughness > 0.0:
+            return self.add_material(
+                materials.TYPE_ROUGH_DIELECTRIC, tint, ior,
+                absorption=absorption, param2=roughness,
+                scattering=scattering,
+            )
+        return self.add_material(
+            materials.TYPE_DIELECTRIC, tint, ior, absorption=absorption,
+            dispersion=dispersion, scattering=scattering,
+        )
 
     def emissive(self, radiance) -> int:
         return self.add_material(materials.TYPE_EMISSIVE, (0.0, 0.0, 0.0),
                                  0.0, radiance)
+
+    def checker(self, color1, color2, frequency: float = 3.0) -> int:
+        """Procedural two-tone Lambertian (world-space checkerboard); the
+        emit columns carry the second color, param the frequency."""
+        return self.add_material(materials.TYPE_CHECKER, color1, frequency,
+                                 color2)
 
     # -- geometry ----------------------------------------------------------
     def add_sphere(self, center, radius, mat_id) -> None:
@@ -440,6 +561,22 @@ class SceneBuilder:
             cc = np.array(self._mat_cc, np.float32)
             if (cc[:, 0] > 0.0).any():
                 mat_clearcoat = dev(cc)
+        # Each optional column exists only when some material uses it, as
+        # the JAX SceneBuilder decides: other scenes never build its lobe.
+        absorb = np.array(self._mat_absorb, np.float32)
+        disp = np.array(self._mat_disp, np.float32)
+        aniso = np.array(self._mat_aniso, np.float32)
+        mat_absorb = dev(absorb) if (absorb > 0.0).any() else None
+        mat_param2 = (dev(np.array(self._mat_param2, np.float32))
+                      if (mat_type == materials.TYPE_ROUGH_DIELECTRIC).any()
+                      else None)
+        mat_disp = dev(disp) if (disp > 0.0).any() else None
+        mat_aniso = dev(aniso) if (aniso > 0.0).any() else None
+        env = self._env
+        if isinstance(env, envmap.EnvMap):
+            env = envmap.EnvMap(*(x.to(device) for x in env))
+        elif env is not None:
+            env = envmap.build_envmap(env, device)
 
         def dev_all(table):
             return type(table)(*(
@@ -452,6 +589,9 @@ class SceneBuilder:
             instances = dev_all(instances)
 
         return Scene(
+            env=env, delta=lights.build_delta_lights(self._delta, device),
+            mat_absorb=mat_absorb, mat_param2=mat_param2, mat_disp=mat_disp,
+            mat_aniso=mat_aniso,
             mat_metallic=mat_metallic, mat_clearcoat=mat_clearcoat,
             instances=instances,
             pages=None if pages is None else dev_all(pages),

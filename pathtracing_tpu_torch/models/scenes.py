@@ -1,7 +1,10 @@
-"""Built-in scenes (the JAX package's ``models/scenes.py``): the Cornell
-family (cornell_sphere, cornell_bsdf, cornell_mesh), the instancing
-showcase (instanced_demo) and the many-light hall (many_lights_demo), with
-the same geometry, materials and cameras.
+"""Built-in scenes (the JAX package's ``models/scenes.py``), with the same
+geometry, materials, lights and cameras, and its registry (``SCENES``,
+``get_scene``, ``PREFERRED_BACKGROUND``) over the scenes the port builds:
+the Cornell family (cornell_sphere, cornell_bsdf, cornell_mesh), the
+reference sphere, the Veach MIS strips, the checker hero shot, the glass,
+frosted, prism, environment-map, principled and spotlight showcases, the
+instancing field and the many-light hall.
 
 Cornell geometry: axis-aligned box spanning [-1, 1]³, open toward +z,
 camera on the +z axis, an emissive quad centered on the ceiling.
@@ -9,11 +12,12 @@ camera on the +z axis, an emissive quad centered on the ceiling.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 
 from pathtracing_tpu_torch.models.scene import Scene, SceneBuilder
+from pathtracing_tpu_torch.ops import envmap
 from pathtracing_tpu_torch.utils.config import CameraConfig
 
 CORNELL_CAMERA = CameraConfig(
@@ -227,12 +231,256 @@ def many_lights_demo(grid: int = 12,
     return b.build(device), cam
 
 
-# Emitter-poor outdoor scenes are lit mostly by the sky: a caller that
-# leaves the background to the scene takes the gradient for these.
+def checker_demo(device=None) -> Tuple[Scene, CameraConfig]:
+    """Three spheres (glass, Lambertian, metal) on a procedural checker
+    ground under the gradient sky, with no lights: pure BSDF-sampled
+    environment lighting."""
+    b = SceneBuilder()
+    ground = b.checker((0.85, 0.85, 0.85), (0.15, 0.25, 0.15),
+                       frequency=1.5)
+    b.add_quad((-30.0, 0.0, -30.0), (60.0, 0.0, 0.0), (0.0, 0.0, 60.0),
+               ground)
+    b.add_sphere((0.0, 1.0, 0.0), 1.0, b.dielectric(1.5))
+    b.add_sphere((-2.2, 1.0, 0.0), 1.0, b.lambertian((0.4, 0.2, 0.1)))
+    b.add_sphere((2.2, 1.0, 0.0), 1.0, b.metal((0.7, 0.6, 0.5), 0.03))
+    cam = CameraConfig(position=(0.0, 1.6, 6.5), look_at=(0.0, 0.9, 0.0),
+                       vfov_degrees=35.0)
+    return b.build(device), cam
+
+
+def veach_mis(roughness_floor: float = 0.0,
+              device=None) -> Tuple[Scene, CameraConfig]:
+    """Veach-style MIS scene: four GGX strips of roughness 0.02 to 0.3
+    under three area lights of very different size and similar power.
+    ``roughness_floor`` clamps the strip roughness from below."""
+    b = SceneBuilder()
+    floor = b.lambertian((0.22, 0.22, 0.24))
+    back = b.lambertian((0.05, 0.05, 0.06))
+    b.add_quad((-12.0, -2.0, -6.0), (24.0, 0.0, 0.0), (0.0, 0.0, 18.0),
+               floor)
+    b.add_quad((-12.0, -2.0, -6.0), (24.0, 0.0, 0.0), (0.0, 14.0, 0.0),
+               back)
+    # Three lights, areas 0.04 / 0.36 / 3.24, radiance ~1/area.
+    for x, half, rad in [(-3.0, 0.1, (380.0, 330.0, 280.0)),
+                         (0.0, 0.3, (42.0, 38.0, 30.0)),
+                         (3.0, 0.9, (4.7, 4.2, 3.5))]:
+        light = b.emissive(rad)
+        b.add_quad((x - half, 5.0, -4.0), (2 * half, 0.0, 0.0),
+                   (0.0, 0.0, 2 * half), light)
+    strips = [(0.02, -1.1, 0.0, 18.0), (0.08, -0.4, 1.2, 14.0),
+              (0.18, 0.4, 2.4, 10.0), (0.30, 1.3, 3.6, 6.0)]
+    for rough, y, z, tilt_deg in strips:
+        m = b.ggx((0.85, 0.82, 0.78),
+                  roughness=max(rough, roughness_floor))
+        t = np.radians(tilt_deg)
+        depth = 0.9
+        # Normal (0, cos t, sin t): up, leaning toward the camera.
+        edge_v = (0.0, depth * np.sin(t), -depth * np.cos(t))
+        b.add_quad((-5.0, y, z), (10.0, 0.0, 0.0), edge_v, m)
+    cam = CameraConfig(position=(0.0, 3.0, 10.0), look_at=(0.0, 1.2, 0.0),
+                       vfov_degrees=40.0)
+    return b.build(device), cam
+
+
+def sphere_demo(device=None) -> Tuple[Scene, CameraConfig]:
+    """The reference's scene: an r = 0.5 sphere at the origin seen from
+    (0, 0, 1), Lambertian under the gradient sky."""
+    b = SceneBuilder()
+    mat = b.lambertian((0.7, 0.7, 0.7))
+    b.add_sphere((0.0, 0.0, 0.0), 0.5, mat)
+    cam = CameraConfig(position=(0.0, 0.0, 1.0), look_at=(0.0, 0.0, 0.0),
+                       vfov_degrees=90.0)
+    return b.build(device), cam
+
+
+def envmap_demo(device=None) -> Tuple[Scene, CameraConfig]:
+    """Image-based lighting: the procedural sun-sky environment (a sun disc
+    four orders brighter than the sky, importance-sampled by NEE) over a
+    checker ground and a diffuse / glossy / glass sphere row. The
+    environment is the only light."""
+    b = SceneBuilder()
+    ground = b.checker((0.45, 0.45, 0.45), (0.2, 0.25, 0.3), 1.5)
+    white = b.lambertian((0.75, 0.72, 0.68))
+    gold = b.ggx((1.0, 0.78, 0.34), 0.15)
+    glass = b.dielectric(1.5)
+    b.add_quad((-20.0, 0.0, -20.0), (40.0, 0.0, 0.0), (0.0, 0.0, 40.0),
+               ground)
+    b.add_sphere((-1.3, 0.55, 0.0), 0.55, white)
+    b.add_sphere((0.0, 0.55, 0.0), 0.55, gold)
+    b.add_sphere((1.3, 0.55, 0.0), 0.55, glass)
+    b.environment(envmap.sky_texels(
+        sun_direction=(0.45, 0.55, -0.55), sky_scale=0.35,
+    ))
+    cam = CameraConfig(position=(0.0, 1.1, 3.4),
+                       look_at=(0.0, 0.55, 0.0), vfov_degrees=38.0)
+    return b.build(device), cam
+
+
+def glass_demo(device=None) -> Tuple[Scene, CameraConfig]:
+    """Absorbing glass: three spheres with Beer–Lambert interiors (red,
+    amber, blue) and a clear one over a checker floor under the gradient
+    sky."""
+    b = SceneBuilder()
+    ground = b.checker((0.8, 0.8, 0.8), (0.25, 0.25, 0.28), 1.5)
+    b.add_quad((-30.0, 0.0, -30.0), (60.0, 0.0, 0.0), (0.0, 0.0, 60.0),
+               ground)
+    # sigma_a per channel: what the glass removes.
+    red = b.dielectric(1.5, absorption=(0.1, 2.2, 2.2))
+    amber = b.dielectric(1.5, absorption=(0.05, 0.7, 2.5))
+    blue = b.dielectric(1.5, absorption=(2.2, 1.2, 0.08))
+    clear = b.dielectric(1.5)
+    for x, m in [(-2.4, red), (-0.8, amber), (0.8, blue), (2.4, clear)]:
+        b.add_sphere((x, 0.7, 0.0), 0.7, m)
+    cam = CameraConfig(position=(0.0, 1.5, 5.2), look_at=(0.0, 0.65, 0.0),
+                       vfov_degrees=36.0)
+    return b.build(device), cam
+
+
+def frosted_demo(device=None) -> Tuple[Scene, CameraConfig]:
+    """Rough glass: a roughness sweep (0 to 0.4) of glass spheres over a
+    checker floor under the gradient sky; the last one also absorbs
+    (frosted amber)."""
+    b = SceneBuilder()
+    ground = b.checker((0.8, 0.8, 0.8), (0.25, 0.25, 0.28), 1.5)
+    b.add_quad((-30.0, 0.0, -30.0), (60.0, 0.0, 0.0), (0.0, 0.0, 60.0),
+               ground)
+    xs = (-2.4, -0.8, 0.8, 2.4)
+    mats = (
+        b.dielectric(1.5),
+        b.dielectric(1.5, roughness=0.08),
+        b.dielectric(1.5, roughness=0.25),
+        b.dielectric(1.5, roughness=0.4, absorption=(0.05, 0.7, 2.5)),
+    )
+    for x, m in zip(xs, mats):
+        b.add_sphere((x, 0.7, 0.0), 0.7, m)
+    cam = CameraConfig(position=(0.0, 1.5, 5.2), look_at=(0.0, 0.65, 0.0),
+                       vfov_degrees=36.0)
+    return b.build(device), cam
+
+
+def prism_demo(device=None) -> Tuple[Scene, CameraConfig]:
+    """Spectral dispersion: a dense-flint sphere (dispersion 0.12) and a
+    plain-glass one under a narrow bright slit light over a white floor."""
+    b = SceneBuilder()
+    white = b.lambertian((0.85, 0.85, 0.85))
+    flint = b.dielectric(ior=1.62, dispersion=0.12)
+    plain = b.dielectric(ior=1.62)
+    b.add_quad((-3.0, 0.0, -3.0), (6.0, 0.0, 0.0), (0.0, 0.0, 6.0), white)
+    b.add_sphere((-0.8, 0.8, 0.0), 0.7, flint)
+    b.add_sphere((0.8, 0.8, 0.0), 0.7, plain)
+    light = b.emissive((60.0, 60.0, 60.0))
+    b.add_quad((-1.6, 3.2, -0.15), (3.2, 0.0, 0.0), (0.0, 0.0, 0.3),
+               light)
+    cam = CameraConfig(position=(0.0, 2.1, 3.6), look_at=(0.0, 0.5, 0.0),
+                       vfov_degrees=45.0)
+    return b.build(device), cam
+
+
+def principled_demo(rows: int = 4, cols: int = 6,
+                    device=None) -> Tuple[Scene, CameraConfig]:
+    """Material-ball grid: metallic from 0 to 1 down the rows, perceptual
+    roughness from 0.04 to 1 across the columns, under the sun-sky
+    environment on a checker floor."""
+    b = SceneBuilder()
+    ground = b.checker((0.5, 0.5, 0.5), (0.25, 0.25, 0.28), 1.2)
+    b.add_quad((-30.0, 0.0, -30.0), (60.0, 0.0, 0.0), (0.0, 0.0, 60.0),
+               ground)
+    r_ball = 0.42
+    pitch = 1.0
+    base = (0.75, 0.25, 0.2)
+    for i in range(rows):
+        metallic = i / max(rows - 1, 1)
+        for j in range(cols):
+            rough = 0.04 + (1.0 - 0.04) * j / max(cols - 1, 1)
+            m = b.principled(base, metallic=metallic, roughness=rough)
+            x = (j - (cols - 1) / 2.0) * pitch
+            z = (i - (rows - 1) / 2.0) * pitch
+            b.add_sphere((x, r_ball, z), r_ball, m)
+    b.environment(envmap.sky_texels(
+        sun_direction=(0.4, 0.6, 0.5), sky_scale=0.35,
+    ))
+    cam = CameraConfig(position=(0.0, 3.4, 5.6),
+                       look_at=(0.0, 0.3, 0.0), vfov_degrees=36.0)
+    return b.build(device), cam
+
+
+def spotlight_demo(device=None) -> Tuple[Scene, CameraConfig]:
+    """Delta lights: a spot pooling on a principled ball, a cool point
+    light rimming a chrome sphere and a faint directional fill, over a
+    brushed-metal (anisotropic GGX) floor. No area light: every photon
+    comes from the delta-light estimator."""
+    b = SceneBuilder()
+    floor = b.ggx((0.55, 0.55, 0.58), roughness=0.3, anisotropy=0.7)
+    b.add_quad((-20.0, 0.0, -20.0), (40.0, 0.0, 0.0), (0.0, 0.0, 40.0),
+               floor)
+    ball = b.principled((0.7, 0.22, 0.15), metallic=0.15, roughness=0.35)
+    b.add_sphere((-0.7, 0.5, 0.0), 0.5, ball)
+    chrome = b.metal((0.9, 0.9, 0.95), fuzz=0.04)
+    b.add_sphere((0.8, 0.4, 0.6), 0.4, chrome)
+    b.spot_light((-0.7, 3.5, 0.3), (0.0, -1.0, -0.08),
+                 (55.0, 50.0, 42.0), inner_degrees=12.0,
+                 outer_degrees=22.0)
+    b.point_light((3.0, 1.5, 2.5), (2.5, 3.5, 6.0))
+    b.directional_light((-0.4, -1.0, -0.3), (0.25, 0.25, 0.3))
+    cam = CameraConfig(position=(0.0, 1.6, 4.5),
+                       look_at=(0.0, 0.5, 0.0), vfov_degrees=40.0)
+    return b.build(device), cam
+
+
+SCENES: Dict[str, Callable[..., Tuple[Scene, CameraConfig]]] = {
+    "cornell_sphere": cornell_sphere,
+    "cornell_bsdf": cornell_bsdf,
+    "cornell_mesh": cornell_mesh,
+    "sphere_demo": sphere_demo,
+    "veach_mis": veach_mis,
+    "checker_demo": checker_demo,
+    "envmap_demo": envmap_demo,
+    "prism_demo": prism_demo,
+    "glass_demo": glass_demo,
+    "frosted_demo": frosted_demo,
+    "instanced_demo": instanced_demo,
+    "principled_demo": principled_demo,
+    "spotlight_demo": spotlight_demo,
+    "many_lights_demo": many_lights_demo,
+}
+
+# Scenes of the JAX registry that need features the port does not carry
+# yet, with the ROADMAP queue-A item that ports them.
+UNPORTED_SCENES: Dict[str, str] = {
+    "textured_demo": "item 12 (surface attributes)",
+    "bump_demo": "item 12 (surface attributes)",
+    "screenlight_demo": "item 12 (surface attributes)",
+    "fog_demo": "item 16 (media)",
+    "smoke_demo": "item 16 (media)",
+    "fire_demo": "item 16 (media)",
+    "sss_demo": "item 16 (media)",
+}
+
+# Emitter-free outdoor scenes are lit by the sky alone: a caller that
+# leaves the background to the scene takes the gradient for these (black
+# would render nothing). Lit interiors and environment-map scenes stay
+# black.
 PREFERRED_BACKGROUND: Dict[str, str] = {
+    "checker_demo": "gradient",
+    "sphere_demo": "gradient",
+    "glass_demo": "gradient",
+    "frosted_demo": "gradient",
     "instanced_demo": "gradient",
 }
 
 
 def preferred_background(name: str) -> str:
     return PREFERRED_BACKGROUND.get(name, "black")
+
+
+def get_scene(name: str, device=None) -> Tuple[Scene, CameraConfig]:
+    """The registry scene ``name`` on ``device`` (the card unless the
+    caller asks for another device)."""
+    if name in UNPORTED_SCENES:
+        raise NotImplementedError(
+            f"scene {name!r} is not ported yet (ROADMAP queue A "
+            f"{UNPORTED_SCENES[name]})"
+        )
+    if name not in SCENES:
+        raise KeyError(f"unknown scene {name!r}; have {sorted(SCENES)}")
+    return SCENES[name](device=device)

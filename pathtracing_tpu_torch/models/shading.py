@@ -1,16 +1,21 @@
 """Per-bounce shading core (the JAX package's ``models/shading.py``).
 
-One bounce = batched closest-hit query -> background/emissive
-accumulation (MIS-weighted) -> next-event estimation with a shadow ray ->
-branchless BSDF scatter -> Russian roulette. The random draws are the JAX
-package's threefry streams, bit for bit (``ops.rng``), so both packages
-follow the same paths for the same (pixel, sample, bounce) counters.
+One bounce = batched closest-hit query -> Beer–Lambert absorption over
+the segment -> environment/emissive accumulation (MIS-weighted) ->
+next-event estimation with shadow rays (area lights, optionally by RIS;
+the environment map; delta lights) -> branchless BSDF scatter -> Russian
+roulette -> the medium handoff at dielectric boundaries. The random draws
+are the JAX package's threefry streams, bit for bit (``ops.rng``), so both
+packages follow the same paths for the same (pixel, sample, bounce)
+counters. Each optional branch runs only for a scene that carries its
+data (``mat_absorb``, ``env``, ``delta``, ``mat_param2``, ``mat_disp``,
+``mat_aniso``) or a config that asks for it (``nee_candidates > 1``), and
+draws no stream otherwise, so every other scene keeps its ops and
+streams.
 
-Ported branches: scenes without fog, volumes, subsurface media,
-absorbing media, environment maps, delta lights, textures, mip cones or
-anisotropic materials, and ``nee_candidates == 1``. Every other branch
-raises ``NotImplementedError`` naming the ROADMAP queue-A item that
-ports it.
+Not ported yet: fog, volumes and subsurface media (ROADMAP queue A item
+16), textures and mip cones (item 12) and per-ray depth counters (item
+13).
 """
 
 from __future__ import annotations
@@ -19,10 +24,13 @@ import torch
 
 from pathtracing_tpu_torch.models import scene as scene_mod
 from pathtracing_tpu_torch.ops import camera as camera_ops
+from pathtracing_tpu_torch.ops import envmap as envmap_ops
 from pathtracing_tpu_torch.ops import lights as lights_ops
 from pathtracing_tpu_torch.ops import linalg, materials, rng
 
 INV_PI = 0.3183098861837907
+# Distance of the any-hit query toward an environment at infinity.
+ENV_SHADOW_T = 1.0e7
 
 
 def background_radiance(direction, mode: str):
@@ -52,60 +60,135 @@ def _uniforms(kd, tag: int, n: int):
     return rng.uniform(rng.fold_in(kd, tag), n)
 
 
+def _column(col, mat_id):
+    """Rows of an optional per-material column for a batch of ids."""
+    return col[torch.clamp(mat_id, 0, col.shape[0] - 1).long()]
+
+
+def _pick_rows(x, j, m: int):
+    """Row ``j[i]`` of candidate group ``i`` of ``x`` (R·m, ...)."""
+    r = j.shape[0]
+    rows = torch.arange(r, device=j.device) * m + j
+    return x[rows]
+
+
+def _ris_pick(scene, ul_all, u_pick, o_nee, normal, lobe, m: int):
+    """Talbot RIS over ``m`` power-CDF light candidates per vertex: all
+    R·m candidates sampled in one call (gather-mode tables fetch their
+    rows through ``pgather.gather_rows``), scored by the unshadowed
+    luminance(f·Le)·cosθ per solid angle, one resampled ∝ score. Returns
+    the winner's (point, normal, emit), its effective density m·p̂/Σw
+    (inf where no candidate scores) and ``ris_ok``; the candidates'
+    tensors go out of scope here."""
+    r = o_nee.shape[0]
+    o_rep = torch.repeat_interleave(o_nee, m, dim=0)
+    clp, cln, clemit, cpdf = lights_ops.sample_solid_angle(
+        scene.lights, ul_all.reshape(r * m, 3), o_rep)
+    cvec = clp - o_rep
+    cd2 = torch.clamp(linalg.dot(cvec, cvec), min=1e-12)
+    cwi = cvec / torch.sqrt(cd2)[:, None]
+    ccos = torch.clamp(
+        linalg.dot(torch.repeat_interleave(normal, m, dim=0), cwi), min=0.0)
+    # The BSDF belongs in the target: a luminance(Le)·cos target resamples
+    # glossy lanes toward lights their lobe cannot see.
+    cf_lobe, _ = lobe(cwi, ccos, m)
+    target = linalg.luminance(cf_lobe * clemit) * ccos
+    wgt = torch.where(cpdf > 1e-20, target / torch.clamp(cpdf, min=1e-20),
+                      0.0).reshape(r, m)
+    w_sum = torch.sum(wgt, dim=1)
+    cum_w = torch.cumsum(wgt, dim=1)
+    j = torch.clamp(torch.sum((u_pick[:, None] * w_sum[:, None]
+                               > cum_w).to(torch.int64), dim=1), 0, m - 1)
+    p_hat = _pick_rows(target, j, m)
+    ris_ok = (w_sum > 0.0) & (p_hat > 0.0)
+    # Winner reuse: the candidate pass already sampled the winner's point,
+    # normal and emission (a pure function of (u, origin)).
+    pdf_sa = torch.where(ris_ok, m * p_hat / torch.clamp(w_sum, min=1e-20),
+                         torch.inf)
+    return (_pick_rows(clp, j, m), _pick_rows(cln, j, m),
+            _pick_rows(clemit, j, m), pdf_sa, ris_ok)
+
+
 def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
                  active, rr_start_depth, background: str, traversal: str,
                  nee: bool = False, prev_pdf=None, prev_nee=None,
                  ld_nee=None, ld_scatter=None, nee_candidates: int = 1,
-                 return_shadow_count: bool = False, time=None):
+                 return_shadow_count: bool = False, time=None, medium=None):
     """One bounce for a whole (R,) ray batch (``depth`` an int: the
     megakernel's bounce index). ``keys`` are the per-path keys
     (``camera_sample``); ``ld_nee`` ((R, 3)) / ``ld_scatter`` ((R, 2))
     optionally replace the first vertex's NEE and scatter draws with the
-    precomputed low-discrepancy ones; ``time`` ((R,), scenes with
-    motion-blurred instances) is the per-path shutter time, passed to the
-    closest-hit and the shadow query. Returns (radiance, throughput, o, d,
-    active, prev_pdf, prev_nee), plus the number of shadow rays traced
-    (an int64 0-d tensor) with ``return_shadow_count``."""
-    if nee_candidates != 1:
-        raise NotImplementedError(
-            "RIS light picks (nee_candidates > 1) are not ported yet "
-            "(ROADMAP queue A item 11)"
-        )
+    precomputed low-discrepancy ones (under RIS, candidate 0's); ``time``
+    ((R,), scenes with motion-blurred instances) is the per-path shutter
+    time, passed to the closest-hit and the shadow queries.
+
+    ``medium`` ((R, 3), scenes with ``mat_absorb``; zeros when None) is
+    the per-path interior sigma_a: this bounce's segment loses
+    exp(−sigma_a·t) of throughput, and the coefficient changes where the
+    scatter transmits through a dielectric (entering: the material's row;
+    leaving: vacuum). ``nee_candidates`` M > 1 picks the area light by
+    RIS over M candidates (``3M + 1`` uniforms of the NEE stream), still
+    one shadow ray per vertex.
+
+    Returns (radiance, throughput, o, d, active, prev_pdf, prev_nee),
+    then ``medium`` for scenes with ``mat_absorb``, then with
+    ``return_shadow_count`` the number of shadow rays traced (area-light,
+    environment and delta waves; an int64 0-d tensor)."""
     if not isinstance(depth, int):
         raise NotImplementedError(
             "per-ray depth counters (the wavefront engine) are not ported "
             "yet (ROADMAP queue A item 13)"
         )
     r = o.shape[0]
+    dev = o.device
     if prev_pdf is None:
-        prev_pdf = torch.zeros(r, dtype=torch.float32, device=o.device)
+        prev_pdf = torch.zeros(r, dtype=torch.float32, device=dev)
     if prev_nee is None:
-        prev_nee = torch.zeros(r, dtype=torch.bool, device=o.device)
+        prev_nee = torch.zeros(r, dtype=torch.bool, device=dev)
     kd = rng.fold_in(keys, depth)
     first = depth == 0
 
     hit = scene_mod.intersect_batch(scene, o, d, traversal, active=active,
                                     time=time)
 
-    env = background_radiance(d, background)
+    has_media = scene.mat_absorb is not None
+    if has_media:
+        if medium is None:
+            medium = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+        # Beer–Lambert over the segment travelled; an escaped ray travels
+        # none (its t is inf, so the segment comes from ``valid``).
+        seg = torch.where(hit.valid, hit.t, 0.0)
+        transmit = torch.exp(-medium * seg[:, None])
+        throughput = throughput * torch.where(active[:, None], transmit, 1.0)
+
+    if scene.env is not None:
+        env = envmap_ops.radiance(scene.env, d)
+        if nee:
+            # The environment is also sampled by NEE: a BSDF-sampled
+            # escape from an NEE vertex is the other estimator.
+            pdf_env_d = envmap_ops.pdf(scene.env, d)
+            w_esc = prev_pdf ** 2 / (prev_pdf ** 2 + pdf_env_d ** 2 + 1e-30)
+            env = env * torch.where(prev_nee, w_esc, 1.0)[:, None]
+    else:
+        env = background_radiance(d, background)
     escaped = active & ~hit.valid
     radiance = radiance + torch.where(escaped[:, None], throughput * env, 0.0)
 
     mtype, alb, par, emit = materials.gather(scene.material_table, hit.mat_id)
     alb = materials.effective_albedo(mtype, alb, par, emit, hit.position)
     emit = materials.effective_emission(mtype, emit)
-    metal_col = cc_col = None
+    # Optional columns, gathered only by scenes that carry them.
+    metal_col = cc_col = aniso_col = None
+    if scene.mat_aniso is not None:
+        aniso_col = _column(scene.mat_aniso, hit.mat_id)
     if scene.mat_metallic is not None:
-        # Principled columns, gathered only by scenes that carry them.
-        safe_id = torch.clamp(hit.mat_id, 0,
-                              scene.mat_metallic.shape[0] - 1).long()
-        metal_col = scene.mat_metallic[safe_id]
+        metal_col = _column(scene.mat_metallic, hit.mat_id)
         if scene.mat_clearcoat is not None:
-            cc_col = scene.mat_clearcoat[safe_id]
+            cc_col = _column(scene.mat_clearcoat, hit.mat_id)
     live = active & hit.valid
 
     nee_on = nee and scene.lights is not None
-    emit_w = torch.ones(r, dtype=torch.float32, device=o.device)
+    emit_w = torch.ones(r, dtype=torch.float32, device=dev)
     if nee_on:
         # MIS: a BSDF-sampled hit on a light is the "other estimator" of the
         # direct light the previous vertex already sampled.
@@ -121,17 +204,55 @@ def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
     )
 
     nee_lobe = materials.is_nee_type(mtype)
-    n_shadow = torch.zeros((), dtype=torch.int64, device=o.device)
+    n_shadow = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def lobe(wi, cos_w, rep: int = 1):
+        """The finite-pdf lobe (f, pdf_b) toward ``wi``: GGX (anisotropic
+        where the column says so) for GGX hits, the principled sum with
+        its mixture pdf for principled hits, Lambertian otherwise. With
+        ``rep`` > 1 the hit's columns are repeated per RIS candidate."""
+        def rp(x):
+            return x if rep == 1 else torch.repeat_interleave(x, rep, dim=0)
+        is_g = rp(mtype) == materials.TYPE_GGX
+        a, nrm, view = rp(alb), rp(hit.normal), rp(-d)
+        f_g, pdf_g = materials.ggx_eval(a, rp(par), nrm, view, wi)
+        f_l = torch.where(is_g[:, None], f_g, a * INV_PI)
+        p_b = torch.where(is_g, pdf_g, cos_w * INV_PI)
+        if aniso_col is not None:
+            an = rp(aniso_col)
+            f_ga, pdf_ga = materials.ggx_eval_aniso(a, rp(par), an, nrm,
+                                                    view, wi)
+            sel_a = is_g & (an > 1e-6)
+            f_l = torch.where(sel_a[:, None], f_ga, f_l)
+            p_b = torch.where(sel_a, pdf_ga, p_b)
+        if metal_col is not None:
+            is_pr = rp(mtype) == materials.TYPE_PRINCIPLED
+            f_p, pdf_p = materials.principled_eval(
+                a, rp(metal_col), rp(par), nrm, view, wi,
+                clearcoat=None if cc_col is None else rp(cc_col))
+            f_l = torch.where(is_pr[:, None], f_p, f_l)
+            p_b = torch.where(is_pr, pdf_p, p_b)
+        return f_l, p_b
 
     if nee_on:
-        if ld_nee is not None and first:
-            ul = ld_nee
-        else:
-            ul = _uniforms(kd, rng.STREAM_NEE, 3)
         o_nee = hit.position
-        lp, ln, lemit, pdf_sa = lights_ops.sample_solid_angle(
-            scene.lights, ul, o_nee
-        )
+        m = nee_candidates
+        if m > 1:
+            uu = _uniforms(kd, rng.STREAM_NEE, 3 * m + 1)
+            ul_all = uu[:, :3 * m].reshape(r, m, 3)
+            if ld_nee is not None and first:
+                ul_all = torch.cat([ld_nee[:, None, :], ul_all[:, 1:]],
+                                   dim=1)
+            lp, ln, lemit, pdf_sa, ris_ok = _ris_pick(
+                scene, ul_all, uu[:, 3 * m], o_nee, hit.normal, lobe, m)
+        else:
+            if ld_nee is not None and first:
+                ul = ld_nee
+            else:
+                ul = _uniforms(kd, rng.STREAM_NEE, 3)
+            lp, ln, lemit, pdf_sa = lights_ops.sample_solid_angle(
+                scene.lights, ul, o_nee
+            )
         wi_vec = lp - o_nee
         dist2 = linalg.dot(wi_vec, wi_vec)
         dist = torch.sqrt(torch.clamp(dist2, min=1e-12))
@@ -141,27 +262,18 @@ def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
         total_power = scene.lights.total_power
         cand = (live & nee_lobe & (cos_s > 1e-6) & (cos_l > 1e-6)
                 & (dist2 > 1e-8) & (total_power > 0.0))
+        if m > 1:
+            cand = cand & ris_ok
         t_shadow = dist * (1.0 - 1e-3)
         occluded = scene_mod.occluded_batch(
             scene, o_nee, wi, t_shadow, traversal, active=cand, time=time
         )
         vis = cand & ~occluded
-        n_shadow = cand.sum()
+        n_shadow = n_shadow + cand.sum()
 
-        # The finite-pdf lobe toward the light: GGX eval for GGX hits,
-        # the two- or three-lobe sum with its mixture pdf for principled
-        # hits, Lambertian otherwise.
-        is_g = mtype == materials.TYPE_GGX
-        f_g, pdf_g = materials.ggx_eval(alb, par, hit.normal, -d, wi)
-        f_lobe = torch.where(is_g[:, None], f_g, alb * INV_PI)
-        pdf_b = torch.where(is_g, pdf_g, cos_s * INV_PI)
-        if metal_col is not None:
-            is_pr = mtype == materials.TYPE_PRINCIPLED
-            f_p, pdf_p = materials.principled_eval(
-                alb, metal_col, par, hit.normal, -d, wi, clearcoat=cc_col)
-            f_lobe = torch.where(is_pr[:, None], f_p, f_lobe)
-            pdf_b = torch.where(is_pr, pdf_p, pdf_b)
-
+        f_lobe, pdf_b = lobe(wi, cos_s)
+        # The MIS weight keeps the one-sample area-law pdf on both arms;
+        # the estimate divides by the true (or RIS effective) density.
         pdf_l = dist2 * linalg.luminance(lemit) / (cos_l * total_power
                                                    + 1e-20)
         w = pdf_l ** 2 / (pdf_l ** 2 + pdf_b ** 2 + 1e-30)
@@ -169,12 +281,56 @@ def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
         contrib = throughput * f_lobe * lemit * scale[:, None]
         radiance = radiance + torch.where(vis[:, None], contrib, 0.0)
 
+    if nee and scene.env is not None:
+        # Environment NEE: a direction ∝ luminance·sinθ, an any-hit ray
+        # toward infinity, MIS against the lobe. Disjoint from the area
+        # lights, so the two estimates add.
+        ue = _uniforms(kd, rng.STREAM_ENV, 2)
+        wi_e, pdf_e = envmap_ops.sample(scene.env, ue[:, 0], ue[:, 1])
+        le = envmap_ops.radiance(scene.env, wi_e)
+        cos_e = linalg.dot(hit.normal, wi_e)
+        cand_e = live & nee_lobe & (cos_e > 1e-6) & (pdf_e > 1e-12)
+        occ_e = scene_mod.occluded_batch(
+            scene, hit.position, wi_e,
+            torch.full((r,), ENV_SHADOW_T, dtype=torch.float32, device=dev),
+            traversal, active=cand_e, time=time)
+        vis_e = cand_e & ~occ_e
+        n_shadow = n_shadow + cand_e.sum()
+        f_lobe_e, pdf_b_e = lobe(wi_e, cos_e)
+        w_e = pdf_e ** 2 / (pdf_e ** 2 + pdf_b_e ** 2 + 1e-30)
+        scale_e = cos_e / torch.clamp(pdf_e, min=1e-20) * w_e
+        contrib_e = throughput * f_lobe_e * le * scale_e[:, None]
+        radiance = radiance + torch.where(vis_e[:, None], contrib_e, 0.0)
+
+    if nee and scene.delta is not None:
+        # Delta lights: NEE alone with MIS weight 1 (a BSDF ray never hits
+        # a zero-extent light); the sampled radiance carries falloff, 1/d²
+        # and the pick probability.
+        ud = _uniforms(kd, rng.STREAM_DELTA, None)
+        wi_d, t_sh_d, le_d = lights_ops.sample_delta(scene.delta, ud,
+                                                     hit.position)
+        cos_d = linalg.dot(hit.normal, wi_d)
+        cand_d = live & nee_lobe & (cos_d > 1e-6)
+        occ_d = scene_mod.occluded_batch(
+            scene, hit.position, wi_d, t_sh_d, traversal, active=cand_d,
+            time=time)
+        vis_d = cand_d & ~occ_d
+        n_shadow = n_shadow + cand_d.sum()
+        f_lobe_d, _ = lobe(wi_d, cos_d)
+        contrib_d = throughput * f_lobe_d * le_d * cos_d[:, None]
+        radiance = radiance + torch.where(vis_d[:, None], contrib_d, 0.0)
+
     u = _uniforms(kd, rng.STREAM_SCATTER, 5)
     if ld_scatter is not None and first:
         u = torch.cat([ld_scatter, u[:, 2:]], dim=1)
     d_out, atten, scattered, scatter_pdf = materials.scatter(
         mtype, alb, par, emit, hit.normal, d, hit.front, u,
-        metallic=metal_col, clearcoat=cc_col,
+        param2=(None if scene.mat_param2 is None
+                else _column(scene.mat_param2, hit.mat_id)),
+        disp=(None if scene.mat_disp is None
+              else _column(scene.mat_disp, hit.mat_id)),
+        throughput=throughput, metallic=metal_col, clearcoat=cc_col,
+        aniso=aniso_col,
     )
     throughput = throughput * torch.where(live[:, None], atten, 1.0)
     active = live & scattered
@@ -194,6 +350,17 @@ def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
     prev_pdf = torch.clamp(scatter_pdf, min=1e-6)
     prev_nee = live & nee_lobe
     out = (radiance, throughput, o, d, active, prev_pdf, prev_nee)
+    if has_media:
+        # Medium handoff: a scattered direction into the surface (against
+        # the ray-facing normal) is a transmission.
+        is_diel = ((mtype == materials.TYPE_DIELECTRIC)
+                   | (mtype == materials.TYPE_ROUGH_DIELECTRIC))
+        transmitted = live & is_diel & (linalg.dot(d_out, hit.normal) < 0.0)
+        medium = torch.where(
+            (transmitted & hit.front)[:, None],
+            _column(scene.mat_absorb, hit.mat_id),
+            torch.where((transmitted & ~hit.front)[:, None], 0.0, medium))
+        out = out + (medium,)
     return out + (n_shadow,) if return_shadow_count else out
 
 

@@ -19,8 +19,12 @@ hand-written gather kernel on the card); their pick is
 exactly and avoids an (R, L) intermediate. Both modes copy rows exactly,
 so they agree bit for bit.
 
-Not ported yet: textured emitters (ROADMAP queue A item 12) and delta
-lights (item 11).
+Delta lights (point, spot, directional) are a table of their own,
+``DeltaLights``: zero-extent emitters that a BSDF-sampled ray never hits,
+so their estimator is pure next-event estimation with MIS weight 1, one
+power-weighted pick per vertex (``sample_delta``).
+
+Not ported yet: textured emitters (ROADMAP queue A item 12).
 """
 
 from __future__ import annotations
@@ -295,3 +299,132 @@ def sample_solid_angle(lights: LightTable, u, origin):
     if cone is not None:
         pdf_sa = torch.where(cone, pdf_cone, pdf_sa)
     return point, normal, emit, pdf_sa
+
+
+# ---------------------------------------------------------------------------
+# Delta lights (point / spot / directional)
+
+DELTA_POSITIONAL = 0   # point / spot: intensity is radiant W/sr
+DELTA_DIRECTIONAL = 1  # direction is the travel direction; intensity is
+#                        the irradiance on a surface facing the light
+
+
+class DeltaLights(NamedTuple):
+    position: torch.Tensor   # (L, 3) f32 (directional rows: zeros)
+    intensity: torch.Tensor  # (L, 3) f32 (see the kinds above)
+    direction: torch.Tensor  # (L, 3) f32 unit spot axis / travel direction
+    cos_inner: torch.Tensor  # (L,) f32 spot: full intensity inside
+    cos_outer: torch.Tensor  # (L,) f32 spot: zero outside (-2 = no cone)
+    kind: torch.Tensor       # (L,) i32 DELTA_POSITIONAL | DELTA_DIRECTIONAL
+    cum: torch.Tensor        # (L,) f32 inclusive pick CDF (power-weighted)
+    prob: torch.Tensor       # (L,) f32 pick probability of each row
+
+
+def build_delta_lights(specs, device):
+    """The table of a list of light dicts, built in numpy as the JAX
+    package builds it and uploaded to ``device``; None for no lights (or
+    no power):
+
+      {"type": "point", "position": [..], "intensity": [r,g,b]}
+      {"type": "spot", "position": [..], "direction": [..],
+       "intensity": [..], "inner_degrees": 20, "outer_degrees": 30}
+      {"type": "directional", "direction": [..], "irradiance": [r,g,b]}
+
+    Pick weights follow the approximate emitted power: 4π·lum for points
+    and directionals, the cone's solid angle (falloff band at half weight)
+    times lum for spots."""
+    if not specs:
+        return None
+    pos, inten, direc, ci, co, kind, power = [], [], [], [], [], [], []
+    for s in specs:
+        t = s["type"]
+        if t == "directional":
+            d = np.asarray(s["direction"], np.float64)
+            d = d / np.linalg.norm(d)
+            e = np.asarray(s.get("irradiance", s.get("intensity")),
+                           np.float32)
+            pos.append(np.zeros(3, np.float32))
+            inten.append(e)
+            direc.append(d.astype(np.float32))
+            ci.append(-2.0)
+            co.append(-2.0)
+            kind.append(DELTA_DIRECTIONAL)
+            lum = float(0.2126 * e[0] + 0.7152 * e[1] + 0.0722 * e[2])
+            power.append(4.0 * np.pi * lum)
+            continue
+        p = np.asarray(s["position"], np.float32)
+        e = np.asarray(s["intensity"], np.float32)
+        lum = float(0.2126 * e[0] + 0.7152 * e[1] + 0.0722 * e[2])
+        if t == "spot":
+            d = np.asarray(s["direction"], np.float64)
+            d = d / np.linalg.norm(d)
+            inner = float(np.cos(np.radians(s.get("inner_degrees", 20.0))))
+            outer = float(np.cos(np.radians(s.get("outer_degrees", 30.0))))
+            if inner < outer:
+                raise ValueError("spot inner cone must be <= outer cone")
+            power.append(2.0 * np.pi * (1.0 - 0.5 * (inner + outer)) * lum)
+        elif t == "point":
+            d = np.array([0.0, -1.0, 0.0], np.float64)
+            inner, outer = -2.0, -2.0
+            power.append(4.0 * np.pi * lum)
+        else:
+            raise ValueError(f"unknown delta light type: {t!r}")
+        pos.append(p)
+        inten.append(e)
+        direc.append(d.astype(np.float32))
+        ci.append(inner)
+        co.append(outer)
+        kind.append(DELTA_POSITIONAL)
+    power = np.asarray(power, np.float64)
+    total = power.sum()
+    if total <= 0.0:
+        return None
+
+    def dev(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    return DeltaLights(
+        position=dev(np.stack(pos)), intensity=dev(np.stack(inten)),
+        direction=dev(np.stack(direc)),
+        cos_inner=dev(np.asarray(ci, np.float32)),
+        cos_outer=dev(np.asarray(co, np.float32)),
+        kind=dev(np.asarray(kind, np.int32), torch.int32),
+        cum=dev(np.cumsum(power / total).astype(np.float32)),
+        prob=dev((power / total).astype(np.float32)),
+    )
+
+
+def sample_delta(dl: DeltaLights, u, origin):
+    """Pick one delta light per ray (power-weighted, the count Σ(u > cum)
+    as in ``pick``) and evaluate it at ``origin`` (R, 3). Returns (wi (R, 3)
+    unit direction toward the light, t_shadow (R,) occlusion query
+    distance, radiance (R, 3): the unshadowed NEE radiance with falloff,
+    1/d² and the pick probability folded in). Spots fall off by the
+    smoothstep between their cone cosines; directional rows shadow toward
+    t = 1e7."""
+    n = dl.cum.shape[0]
+    idx = torch.clamp(torch.sum((u[:, None] > dl.cum[None, :]).to(
+        torch.int64), dim=1), 0, n - 1)
+    p = dl.position[idx]
+    e = dl.intensity[idx]
+    axis = dl.direction[idx]
+    cin = dl.cos_inner[idx]
+    cout = dl.cos_outer[idx]
+    prob = dl.prob[idx]
+
+    is_dir = dl.kind[idx] == DELTA_DIRECTIONAL
+    to_l = p - origin
+    dist2 = linalg.dot(to_l, to_l)
+    dist = torch.sqrt(torch.clamp(dist2, min=1e-12))
+    wi_pos = to_l / dist[:, None]
+    wi = torch.where(is_dir[:, None], -axis, wi_pos)
+    t_shadow = torch.where(is_dir, 1.0e7, dist * (1.0 - 1e-3))
+
+    cosang = linalg.dot(axis, -wi_pos)
+    tt = torch.clamp((cosang - cout) / torch.clamp(cin - cout, min=1e-6),
+                     0.0, 1.0)
+    falloff = torch.where(cout > -1.5, tt * tt * (3.0 - 2.0 * tt), 1.0)
+
+    rad_pos = e * (falloff / torch.clamp(dist2, min=1e-12))[:, None]
+    radiance = torch.where(is_dir[:, None], e, rad_pos)
+    return wi, t_shadow, radiance / torch.clamp(prob, min=1e-12)[:, None]

@@ -316,15 +316,6 @@ def test_principled_scatter_matches(coat):
         assert torch.equal(a[lam], b[lam])
 
 
-def test_unported_lobes_still_raise():
-    z3, z1 = torch.zeros((4, 3)), torch.zeros(4)
-    args = (torch.zeros(4, dtype=torch.int32), z3, z1, z3, z3, z3,
-            torch.ones(4, dtype=torch.bool), torch.zeros((4, 5)))
-    for kw in ("param2", "disp", "aniso"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tmat.scatter(*args, **{kw: z1})
-
-
 # --- the slice as a whole --------------------------------------------------
 
 

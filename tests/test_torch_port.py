@@ -12,6 +12,7 @@ to the single-shot render; the tonemap and PNG bytes equal the JAX
 package's.
 """
 
+import ast
 import dataclasses
 import os
 import pkgutil
@@ -26,6 +27,7 @@ import torch
 
 from pathtracing_tpu.utils import image as jimage
 from pathtracing_tpu_torch.models import megakernel, progressive, scenes
+from pathtracing_tpu_torch.models import scene as scene_mod
 from pathtracing_tpu_torch.models.scene import SceneBuilder
 from pathtracing_tpu_torch.ops import camera as tcamera
 from pathtracing_tpu_torch.ops import cluster_trace, cuda_build
@@ -401,3 +403,45 @@ def test_unported_camera_features_name_their_item(change):
     cfg = dataclasses.replace(scenes.CORNELL_CAMERA, **change)
     with pytest.raises(NotImplementedError, match="item 20"):
         tcamera.build_camera(cfg, 1.0, device="cpu")
+
+
+def _open_roadmap_items():
+    """The item numbers of ROADMAP.md queue A's "Still to port" list."""
+    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
+        text = f.read()
+    queue_a = text.split("### A.", 1)[1].split("### B.", 1)[0]
+    still = queue_a.split("Still to port", 1)[1]
+    return {int(n) for n in re.findall(r"^(\d+)\. \*\*", still, re.M)}
+
+
+def test_not_implemented_messages_name_an_open_item():
+    """Every ``NotImplementedError`` the port raises names the ROADMAP
+    queue-A item that ports it, and that item is still open: in the
+    message itself, or in the table the message is formatted from
+    (``models.scene._UNPORTED_FIELDS``, ``models.scenes.UNPORTED_SCENES``)."""
+    open_items = _open_roadmap_items()
+    assert {12, 13, 16, 18} <= open_items and not {10, 11} & open_items
+    raises = []
+    for path in _sources():
+        if not path.startswith(PKG):
+            continue
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Raise)
+                    and isinstance(node.exc, ast.Call)
+                    and getattr(node.exc.func, "id", "")
+                    == "NotImplementedError"):
+                text = "".join(c.value for c in ast.walk(node.exc)
+                               if isinstance(c, ast.Constant)
+                               and isinstance(c.value, str))
+                raises.append((f"{path}:{node.lineno}", text))
+    assert len(raises) >= 7
+    for where, text in raises:
+        assert "queue A" in text, where
+        items = {int(n) for n in re.findall(r"item (\d+)", text)}
+        assert items <= open_items, (where, items)
+    for table in (scene_mod._UNPORTED_FIELDS, scenes.UNPORTED_SCENES):
+        for what, item in table.items():
+            n = int(re.match(r"item (\d+)", item).group(1))
+            assert n in open_items, (what, item)

@@ -258,18 +258,8 @@ def test_unported_branches_raise():
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, 0.0, -1.0]] * 4)
     keys = trng.pixel_sample_key(0, torch.arange(4), 0)
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        tshading.bounce_batch(scene_t, o, d, keys, 0, torch.zeros((4, 3)),
-                              torch.ones((4, 3)), torch.ones(4, dtype=bool),
-                              8, "black", "cluster_torch", nee=True,
-                              nee_candidates=4)
     with pytest.raises(NotImplementedError, match="queue A item 13"):
         tshading.bounce_batch(scene_t, o, d, keys, torch.zeros(4, dtype=int),
                               torch.zeros((4, 3)), torch.ones((4, 3)),
                               torch.ones(4, dtype=bool), 8, "black",
                               "cluster_torch")
-    with pytest.raises(NotImplementedError):
-        tmat.scatter(torch.zeros(4, dtype=torch.int32),
-                     torch.zeros((4, 3)), torch.zeros(4), torch.zeros((4, 3)),
-                     d, d, torch.ones(4, dtype=bool), torch.zeros((4, 5)),
-                     param2=torch.zeros(4))
