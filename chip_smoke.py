@@ -64,6 +64,16 @@ Phases, in order; any failure exits non-zero:
                  gather on the 16,588,800 candidate indices of a real RIS
                  pick (M = 8) on many_lights_demo. Held as above, timed,
                  with their bounds.
+               * surface attributes and cameras: the flat pair on
+                 textured_demo's camera, bounce and bounce shadow waves,
+                 screenlight_demo's camera shadow wave (toward its
+                 textured screen) and the flagship's waves through the
+                 equirect camera (rays over the whole sphere); the paged
+                 pair on the bounce and bounce shadow waves of the
+                 textured, smooth-shaded cornell_mesh(8)
+                 (``scenes.textured_cornell_mesh_builder``), and its slot
+                 map: the camera wave's ``Hit.prim`` through row 6 and
+                 ``slot_to_tri`` against the "bvh" route's prim.
                Each traversal kernel's bound counts the cluster
                evaluations its wave needs in any visiting order
                (``needed_evals``, a slab-test pass over the whole wave
@@ -88,12 +98,25 @@ Phases, in order; any failure exits non-zero:
                unpaged one both tree walks and neither the flat nor the
                paged kernels, the nine new scenes the flat pair and no
                other kernel, the RIS render the flat pair and the gather
-               and no other.
+               and no other. Then textured_demo, bump_demo,
+               screenlight_demo, textured_demo with mips (``add_mips``)
+               and the textured cornell_mesh(8), their profiled steps
+               with the device time of ``surface_attributes`` and the
+               texture lookups; the flagship through the ortho, fisheye
+               and equirect projections and a moving camera (one timed
+               step each); ``render_reference`` at 1920x1080 against the
+               CPU; and the "bvh" route (plain torch) on cornell_bsdf and
+               textured_demo at 128x128, depth 4: its hits on the camera
+               and first bounce waves against the cluster route's, its
+               image within 1e-4 of theirs, no kernel launched.
   5. check   — each image is finite with a plausible mean, and a small
                render of each scene through the kernels agrees with the
                same render through the plain versions: 64x64 for the
-               earlier and the new scenes and for cornell_mesh(3) paged by
-               16; 32x32 at depth 4 for the unpaged cornell_mesh(8).
+               earlier and the new scenes, cornell_mesh(3) through each
+               camera, the textured cornell_mesh(3) paged by 16, an
+               instanced field over a textured ground (rows 4-5) and
+               cornell_mesh(3) paged by 16; 32x32 at depth 4 for the
+               unpaged cornell_mesh(8).
   6. bench   — ``python -m pathtracing_tpu_torch.bench`` in quick mode as
                a subprocess; its JSON line is required and printed.
 
@@ -106,6 +129,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -157,10 +181,43 @@ NEW_SCENES = ("sphere_demo", "veach_mis", "checker_demo", "glass_demo",
               "frosted_demo", "prism_demo", "envmap_demo", "principled_demo",
               "spotlight_demo")
 RIS_M = 8
+# The surface-attribute scenes rendered at full size (with textured_demo
+# again with mips, and the textured, smooth-shaded cornell_mesh(8)), the
+# flagship's camera variants (the three other projections and a pinhole
+# moving between CORNELL_CAMERA's pose and MOTION_POSITION), and the
+# "bvh" route's renders: size, depth, scenes.
+ATTR_SCENES = ("textured_demo", "bump_demo", "screenlight_demo")
+CAMERA_CASES = ("ortho", "fisheye", "equirect", "motion")
+MOTION_POSITION = (0.3, 0.2, 3.2)
+BVH_SIZE, BVH_DEPTH = 128, 4
+BVH_SCENES = ("cornell_bsdf", "textured_demo")
+# Largest per-pixel difference between a "bvh" render and the cluster
+# route's at BVH_SIZE², BVH_DEPTH, 2 spp: the port's CPU run measured
+# 4.9e-5 (cornell_bsdf) and 3.5e-5 (textured_demo), as the two routes
+# round t apart (Möller–Trumbore against the Woop test).
+BVH_IMAGE_TOL = 1e-4
+# The "bvh" route's t (Möller–Trumbore) against the cluster route's (the
+# Woop test): within BVH_T_RTOL·t + BVH_T_ATOL. Bounce rays leave a
+# surface at coordinates near 1, so short hits (t from 0.004) part by a
+# few ulps of those coordinates: measured on the CPU and on the card at
+# 128x128 (cornell_bsdf, textured_demo), up to 7.2e-7 absolute, 1e-5
+# relative; 17 of 29,186 bounce rays beyond 4e-6 relative.
+BVH_T_RTOL, BVH_T_ATOL = 4e-6, 2e-6
+# render_reference on the card against the CPU, per pixel: 1,345,027 of
+# the 2,073,600 pixels differ, by at most 4.12e-5 (this script on "NVIDIA
+# H100 80GB HBM3, 700.00 W"): last-bit differences of the two devices'
+# arithmetic, magnified where sqrt(disc) of the quadratic nears 0 at the
+# sphere's silhouette.
+REFERENCE_TOL = 1e-4
 # Image means below 0.05 that are the scene's own: spotlight_demo is lit
 # by three delta lights alone (the JAX package's CPU render of it has mean
-# 0.0295 at 24x24, 3 spp, seed 0).
-MIN_MEAN = {"spotlight_demo": 0.01}
+# 0.0295 at 24x24, 3 spp, seed 0); the flagship seen through the equirect
+# camera is mostly the black outside of the box (the port's CPU render at
+# 64x36, 2 spp: mean 0.0241).
+MIN_MEAN = {"spotlight_demo": 0.01, "flagship equirect": 0.01}
+# Profiler ranges put around the attribute resolve and the texture lookups
+# for a profiled step (``attribute_ranges``).
+RANGE_PREFIX = "attrs:"
 # The design of the big-scene kernels on the shared walker
 # (csrc/cluster_walk.cuh), and the plain versions they are held to bit for
 # bit, named in the kernels line.
@@ -730,24 +787,68 @@ def gather_checks(scene, config, failures):
     return main
 
 
-def profile_step(step, kernel_names):
+@contextlib.contextmanager
+def attribute_ranges():
+    """Profiler ranges (``RANGE_PREFIX``) around ``surface_attributes`` and
+    the texture lookups, patched in for a profiled step only, so a profile
+    can give their device time. The lookups inside ``surface_attributes``
+    (normal maps) count in both ranges."""
+    from torch.profiler import record_function
+
+    from pathtracing_tpu_torch.models import scene as scene_mod
+    from pathtracing_tpu_torch.ops import texture
+
+    saved = []
+    for mod, name, label in (
+            (scene_mod, "surface_attributes", "surface_attributes"),
+            (texture, "sample_bilinear", "texture_lookups"),
+            (texture, "sample_trilinear", "texture_lookups")):
+        orig = getattr(mod, name)
+
+        def wrapped(*args, _orig=orig, _label=RANGE_PREFIX + label, **kw):
+            with record_function(_label):
+                return _orig(*args, **kw)
+
+        saved.append((mod, name, orig))
+        setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+def profile_step(step, kernel_names, ranges=False):
     """Device time of one step by kernel, from torch.profiler: the share of
     each hand-written kernel in ``kernel_names``, the rest (plain torch:
     RNG, shading, sampling), and the device's busy share of the step's
-    wall time."""
+    wall time. ``ranges``: also the device time of the kernels launched
+    inside ``attribute_ranges``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with contextlib.ExitStack() as stack:
+        if ranges:
+            stack.enter_context(attribute_ranges())
+        prof = stack.enter_context(profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]))
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
+    in_ranges = {}
     n_kernels = 0
     for ev in prof.events():
+        if ev.name.startswith(RANGE_PREFIX):
+            # The CPU range sums its launches' kernels; the device-side
+            # annotation is a span, not a kernel.
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                key = ev.name[len(RANGE_PREFIX):] + "_ms"
+                in_ranges[key] = (in_ranges.get(key, 0.0)
+                                  + ev.device_time_total / 1e3)
+            continue
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         by_name[ev.name] = (by_name.get(ev.name, 0.0)
@@ -759,11 +860,14 @@ def profile_step(step, kernel_names):
     ours = {k: sum(v for n, v in by_name.items() if k in n)
             for k in kernel_names}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    if ranges and not any(in_ranges.values()):
+        in_ranges = {"ranges": "not measured"}
     return {
         "wall_ms": wall_ms, "device_ms": device_ms,
         "busy_share": device_ms / wall_ms, "device_ops": n_kernels,
         **{f"{k}_ms": v for k, v in ours.items()},
         "other_ms": device_ms - sum(ours.values()),
+        **in_ranges,
         "top": [[n[:60], ms] for n, ms in top],
     }
 
@@ -776,12 +880,12 @@ def launch_counts():
 
 
 def timed_render(label, scene, camera, config, card, kernel_names,
-                 min_mean=0.05):
-    """One warm-up step, then TIMED_STEPS steps through
+                 min_mean=0.05, steps=TIMED_STEPS, ranges=False):
+    """One warm-up step, then ``steps`` steps through
     ``progressive.render_step`` with every launch count set to 0 just
-    before and read just after, ``resolve``, and one profiled step. The
-    image must be finite with a mean in (``min_mean``, 5). Returns (image,
-    launches)."""
+    before and read just after, ``resolve``, and one profiled step
+    (``ranges``: with ``attribute_ranges``). The image must be finite with
+    a mean in (``min_mean``, 5). Returns (image, launches)."""
     import torch
 
     from pathtracing_tpu_torch.models import progressive
@@ -797,7 +901,7 @@ def timed_render(label, scene, camera, config, card, kernel_names,
     ct.reset_launches()
     pgather.reset_launches()
     t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
+    for _ in range(steps):
         state = progressive.render_step(state, scene, camera, config,
                                         stats=stats)
     torch.cuda.synchronize()
@@ -809,8 +913,8 @@ def timed_render(label, scene, camera, config, card, kernel_names,
     mrays = (segments + shadow) / dt / 1e6
     print(json.dumps({
         "render": f"{label} {WIDTH}x{HEIGHT} depth{DEPTH} megakernel nee ld",
-        "warmup_step_s": warm_s, "timed_steps": TIMED_STEPS,
-        "step_s": dt / TIMED_STEPS, "segments": segments,
+        "warmup_step_s": warm_s, "timed_steps": steps,
+        "step_s": dt / steps, "segments": segments,
         "shadow_segments": shadow, "mrays_per_s": mrays,
         "launches": launches, "card": card,
     }), flush=True)
@@ -818,7 +922,7 @@ def timed_render(label, scene, camera, config, card, kernel_names,
           f"{dt:.3f} s) on {card}", flush=True)
     print(f"profile {label} " + json.dumps(profile_step(
         lambda: progressive.render_step(state, scene, camera, config),
-        kernel_names)), flush=True)
+        kernel_names, ranges=ranges)), flush=True)
     if tuple(image.shape) != (HEIGHT, WIDTH, 3):
         raise SmokeFailure(f"{label}: image shape {tuple(image.shape)}")
     if not bool(torch.isfinite(image).all()):
@@ -848,15 +952,18 @@ def small_render_check(label, scene, plain_scene, cam_cfg, background,
     the same render through the plain versions (``plain_scene`` with
     ``traversal="cluster_torch"``). Both routes compute the same t bit for
     bit (--fmad=false), so only a tie resolved to another triangle can
-    part two paths. Returns the kernel launches of the render through the
-    kernels (the counts set to 0 just before it)."""
+    part two paths. A ``cam_cfg`` with a shutter-close pose renders
+    through its motion pair. Returns the kernel launches of the render
+    through the kernels (the counts set to 0 just before it)."""
     from pathtracing_tpu_torch.models import progressive
     from pathtracing_tpu_torch.ops import cluster_trace as ct
     from pathtracing_tpu_torch.ops import pgather
     from pathtracing_tpu_torch.ops.camera import build_camera
     from pathtracing_tpu_torch.utils.config import RenderConfig
 
-    cam = build_camera(cam_cfg, 1.0, device=DEVICE)
+    pair = cam_cfg.motion_pair()
+    cam = (build_camera(cam_cfg, 1.0, device=DEVICE) if pair is None else
+           tuple(build_camera(c, 1.0, device=DEVICE) for c in pair))
     imgs = []
     launches = None
     for trav, sc in (("cluster_cuda", scene), ("cluster_torch", plain_scene)):
@@ -1130,9 +1237,10 @@ def big_scene_checks(camera, config, failures):
             "n_flat": n_flat, "n_nodes": n_nodes}
 
 
-def big_entries(big, big_launches, tree_launches):
+def big_entries(big, big_launches, tree_launches, paged_by_scene):
     """The ``kernels`` entries of rows 6-9 of the port table (row 6 as its
-    closest hit and its any hit)."""
+    closest hit and its any hit, with its launches in each paged scene's
+    render, ``paged_by_scene``)."""
     src = "pathtracing_tpu_torch/csrc/"
     res = big["results"]
     n_real, n_flat = big["n_real"], big["n_flat"]
@@ -1168,8 +1276,288 @@ def big_entries(big, big_launches, tree_launches):
             lambda r, rb=ray_bytes, tb=table: bound_ms(
                 r["needed_evals"], r["rays"], n_real, rb, table_bytes=tb),
             path=path, plain_rays=res[name][main]["plain_rays"],
-            vs_trace_torch="tie contract held", **DESIGNS.get(name, {})))
+            vs_trace_torch="tie contract held", **DESIGNS.get(name, {}),
+            **({"launches_by_scene": paged_by_scene[name]}
+               if name in paged_by_scene else {})))
     return entries
+
+
+def attribute_wave_checks(attr, attr_cams, flagship, flag_cam_cfg, config,
+                          results, failures):
+    """Rows 1-2 on the waves of the surface-attribute and camera slice,
+    each against its plain version bit for bit and the JAX-order oracle:
+    textured_demo's camera and bounce waves (their hits feed the attribute
+    gather by slot; the bounce wave leaves along the shading normals) and
+    its bounce shadow wave; screenlight_demo's camera shadow wave toward
+    its textured screen (the points of ``sample_solid_angle(with_uv=
+    True)``); and the flagship's waves through the equirect camera, whose
+    rays cover the whole sphere. Whole frames less 37, every 11th lane
+    dead. Adds to ``results`` under "scene:wave"."""
+    from pathtracing_tpu_torch.ops.camera import build_camera
+
+    phase("kernels vs plain: surface attributes and cameras")
+    equirect = build_camera(dataclasses.replace(flag_cam_cfg,
+                                                projection="equirect"),
+                            WIDTH / HEIGHT, device=DEVICE)
+    plan = (
+        ("textured_demo", attr["textured_demo"][0],
+         attr_cams["textured_demo"], ("camera", "bounce"),
+         ("bounce_shadow",)),
+        ("screenlight_demo", attr["screenlight_demo"][0],
+         attr_cams["screenlight_demo"], (), ("camera_shadow",)),
+        ("flagship equirect", flagship, equirect, ("camera",),
+         ("camera_shadow",)),
+    )
+    for label, sc, cam, traced, shadowed in plan:
+        tk, tp, ok, op, oracle, occ_oracle = flat_fns(sc.clusters)
+        boxes = (sc.clusters.aabb_min, sc.clusters.aabb_max)
+        waves = make_waves(sc, cam, config, bounce="bounce" in traced
+                           or "bounce_shadow" in shadowed)
+        for wname in traced:
+            res = check_trace(tk, tp, waves[wname], strict=True,
+                              normal_tol=0.0, reference=oracle, boxes=boxes)
+            res["n_clusters"] = int(sc.clusters.woop.shape[0])
+            results["trace"][f"{label}:{wname}"] = res
+            report("trace_dnf", res, failures, wave=wname, scene=label)
+        for wname in shadowed:
+            res = check_occluded(ok, op, waves[wname], reference=occ_oracle,
+                                 boxes=boxes)
+            res["n_clusters"] = int(sc.clusters.woop.shape[0])
+            results["occluded"][f"{label}:{wname}"] = res
+            report("occluded_dnf", res, failures, wave=wname, scene=label)
+        del waves
+
+
+def textured_big_checks(camera, config, failures):
+    """Row 6 on the textured, smooth-shaded cornell_mesh(8)
+    (``scenes.textured_cornell_mesh_builder``, paged by
+    ``SceneBuilder.build``): the closest hit on its bounce and bounce
+    shadow waves (the shading normals turn the bounce wave) and the any
+    hit on the bounce shadow wave, held bit for bit against the plain
+    walks and under the tie contract against ``trace_torch`` on
+    BIG_SUBSET rays; then the slot map: the camera wave's ``Hit.prim``
+    through row 6 and ``slot_to_tri`` against the "bvh" route's prim on
+    the same rays (prims equal where t is not tied). Returns {"scene",
+    "results", "n_real"}."""
+    import torch
+
+    from pathtracing_tpu_torch.models import scene as scene_mod
+    from pathtracing_tpu_torch.models import scenes
+    from pathtracing_tpu_torch.ops import cluster_trace as ct
+
+    t = phase("kernels vs plain: textured big scene")
+    scene = scenes.textured_cornell_mesh_builder(BIG_SUBDIVISIONS).build(
+        DEVICE)
+    cl, pages = scene.clusters, scene.pages
+    real = (cl.aabb_min <= cl.aabb_max).all(dim=1)
+    n_real = int(real.sum())
+    print(f"textured cornell_mesh({BIG_SUBDIVISIONS}): "
+          f"{scene.tri_v0.shape[0]} triangles, {n_real} clusters in "
+          f"{pages.node_box.shape[0]} pages; attr_pack "
+          f"{tuple(scene.attr_pack.shape)} "
+          f"({scene.attr_pack.numel() * 4 / 1e6:.1f} MB); built in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    if scene.attr_shn is None or scene.textures is None:
+        raise SmokeFailure("the textured big scene lost its attributes")
+    boxes = (cl.aabb_min[real], cl.aabb_max[real])
+    waves = make_waves(scene, camera, config)
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    sub = torch.randperm(waves["camera"][0].shape[0],
+                         generator=gen)[:BIG_SUBSET].sort().values.to(DEVICE)
+
+    def reference(o, d, cap):
+        return ct.trace_torch(cl, o, d, cap)
+
+    results = {"trace_paged_dnf": {}, "occluded_paged_dnf": {}}
+    for wname in ("bounce", "bounce_shadow"):
+        res = check_trace(
+            lambda o, d, cap: ct.trace_paged_dnf(cl, pages, o, d, cap),
+            lambda o, d, cap, stats: ct.trace_paged_walk_torch(
+                cl, pages, o, d, cap, stats=stats),
+            waves[wname], chunk=BIG_SUBSET, strict=True, normal_tol=0.0,
+            sub=sub, reference=reference, shadow="shadow" in wname,
+            boxes=boxes)
+        results["trace_paged_dnf"]["textured:" + wname] = res
+        report("trace_paged_dnf", res, failures, wave=wname,
+               scene="textured cornell_mesh(8)")
+    res = check_occluded(
+        lambda o, d, cap: ct.occluded_paged_dnf(cl, pages, o, d, cap),
+        lambda o, d, cap, stats: ct.occluded_paged_dnf_torch(
+            cl, pages, o, d, cap, stats=stats),
+        waves["bounce_shadow"], chunk=BIG_SUBSET, sub=sub,
+        reference=reference, boxes=boxes)
+    results["occluded_paged_dnf"]["textured:bounce_shadow"] = res
+    report("occluded_paged_dnf", res, failures, wave="bounce_shadow",
+           scene="textured cornell_mesh(8)")
+
+    o, d, cap = held_rays(waves["camera"], sub)
+    live = cap > 0
+    hk = scene_mod.intersect_batch(scene, o, d, "cluster_cuda", active=live)
+    bvh_ms, hb = cuda_ms(lambda: scene_mod.intersect_batch(scene, o, d,
+                                                           "bvh"))
+    tied = (hk.t - hb.t).abs() <= BVH_T_RTOL * hb.t + BVH_T_ATOL
+    bad = live & ((hk.valid != hb.valid)
+                  | (hk.valid & (hk.prim != hb.prim) & ~tied))
+    n_live = int(live.sum())
+    print("slot map " + json.dumps({
+        "scene": f"textured cornell_mesh({BIG_SUBDIVISIONS})",
+        "wave": "camera", "rays": n_live,
+        "hits": int((live & hk.valid).sum()),
+        "prim_mismatches": int(bad.sum()),
+        "prims_differing": int((live & hk.valid
+                                & (hk.prim != hb.prim)).sum()),
+        "bvh_route_ms": bvh_ms}), flush=True)
+    # A wrong slot map misses nearly every ray; allow only the rays that
+    # graze an edge where the two triangle tests part.
+    if int(bad.sum()) > 1e-4 * n_live or int((live & (hk.prim >= 0)).sum()
+                                             ) < n_live // 4:
+        raise SmokeFailure("the paged slot map does not resolve the kernel's "
+                           "slots to the BVH route's triangles")
+    del waves
+    return {"scene": scene, "results": results, "n_real": n_real}
+
+
+def attr_instanced_scene():
+    """instanced_demo's field (6 x 6 of a subdivision-2 icosphere) over a
+    grid-textured ground with quad uvs: an instanced scene whose base
+    geometry carries attributes (prototype slots resolve to -1)."""
+    from pathtracing_tpu_torch.models import scenes
+    from pathtracing_tpu_torch.models.scene import SceneBuilder
+
+    b = SceneBuilder()
+    ground = b.lambertian((0.6, 0.58, 0.52),
+                          texture=scenes.grid_texture(64, 8))
+    b.add_quad((-14.0, 0.0, -14.0), (28.0, 0.0, 0.0), (0.0, 0.0, 28.0),
+               ground, uv=True)
+    light = b.emissive((40.0, 38.0, 34.0))
+    b.add_quad((-2.0, 9.0, -6.0), (4.0, 0.0, 0.0), (0.0, 0.0, 4.0), light)
+    mats = [b.lambertian((0.70, 0.30, 0.25)), b.metal((0.85, 0.85, 0.9), 0.08),
+            b.ggx((0.9, 0.7, 0.35), roughness=0.25)]
+    verts, faces = scenes.icosphere(2, 0.45)
+    ts, overrides = scenes.instanced_field(6, mats)
+    b.add_instances(verts, faces, mats[0], ts, materials=overrides)
+    return b.build(DEVICE)
+
+
+def camera_variant(cam_cfg, case):
+    """The flagship's camera config for ``case``: a projection, or a
+    pinhole moving to MOTION_POSITION over the shutter."""
+    if case == "motion":
+        return dataclasses.replace(cam_cfg, motion_position=MOTION_POSITION)
+    return dataclasses.replace(cam_cfg, projection=case)
+
+
+def build_pose(cam_cfg, aspect):
+    """A camera, or the motion pair of a config with a shutter-close
+    pose, on the card."""
+    from pathtracing_tpu_torch.ops.camera import build_camera
+
+    pair = cam_cfg.motion_pair()
+    if pair is None:
+        return build_camera(cam_cfg, aspect, device=DEVICE)
+    return tuple(build_camera(c, aspect, device=DEVICE) for c in pair)
+
+
+def reference_check():
+    """``render_reference`` at 1920x1080 on the card against the same call
+    on the CPU, per pixel within REFERENCE_TOL; returns its line."""
+    import torch
+
+    from pathtracing_tpu_torch.models.reference import render_reference
+
+    ms, img = cuda_ms(lambda: render_reference(HEIGHT, WIDTH, device=DEVICE))
+    ref = render_reference(HEIGHT, WIDTH, device="cpu")
+    diff = (img.cpu() - ref).abs().amax(-1)
+    err = float(diff.max())
+    res = {"image": f"render_reference {WIDTH}x{HEIGHT}", "ms": ms,
+           "max_abs_err_vs_cpu": err,
+           "pixels_differing": int((diff > 0).sum()),
+           "pixels_over_1e-6": int((diff > 1e-6).sum()),
+           "pixels_over_1e-5": int((diff > 1e-5).sum()),
+           "tolerance": REFERENCE_TOL}
+    print("reference " + json.dumps(res), flush=True)
+    if tuple(img.shape) != (HEIGHT, WIDTH, 4) or not bool(
+            torch.isfinite(img).all()) or err > REFERENCE_TOL:
+        raise SmokeFailure(f"the reference image disagrees with the CPU: "
+                           f"{res}")
+    return res
+
+
+def bvh_checks(failures):
+    """The "bvh" route on the card (plain torch, ``ops.bvh.traverse``) for
+    BVH_SCENES at BVH_SIZE², against the cluster_cuda route: the camera
+    and first bounce waves' hits (valid and triangle flags equal; t within
+    BVH_T_RTOL·t + BVH_T_ATOL; prims through ``slot_to_tri`` equal where
+    the scene has it, else materials equal) and a BVH_DEPTH, 2 spp
+    image within BVH_IMAGE_TOL per pixel. The "bvh" render launches no
+    kernel. Returns {scene: line}."""
+    import torch
+
+    from pathtracing_tpu_torch.models import progressive, scenes
+    from pathtracing_tpu_torch.models import scene as scene_mod
+    from pathtracing_tpu_torch.ops import cluster_trace as ct
+    from pathtracing_tpu_torch.ops import pgather
+    from pathtracing_tpu_torch.ops.camera import build_camera
+    from pathtracing_tpu_torch.utils.config import RenderConfig
+
+    phase("bvh route")
+    out = {}
+    for name in BVH_SCENES:
+        sc, cc = scenes.get_scene(name, device=DEVICE)
+        cam = build_camera(cc, 1.0, device=DEVICE)
+        base = dict(width=BVH_SIZE, height=BVH_SIZE, samples_per_pixel=2,
+                    max_depth=BVH_DEPTH, seed=0,
+                    background=scenes.preferred_background(name))
+        pix = torch.arange(BVH_SIZE * BVH_SIZE, device=DEVICE)
+        waves = make_waves(sc, cam, RenderConfig(**base), pix=pix)
+        line = {"scene": name, "size": BVH_SIZE, "depth": BVH_DEPTH,
+                "bvh_nodes": int(sc.bvh.node_meta.shape[0])}
+        for wname in ("camera", "bounce"):
+            o, d, cap = waves[wname]
+            live = cap > 0
+            hc = scene_mod.intersect_batch(sc, o, d, "cluster_cuda",
+                                           active=live)
+            ms, hb = cuda_ms(lambda: scene_mod.intersect_batch(sc, o, d,
+                                                               "bvh"))
+            both = live & hc.valid
+            tied = (hc.t - hb.t).abs() <= BVH_T_RTOL * hb.t + BVH_T_ATOL
+            bad = live & ((hc.valid != hb.valid) | (hc.tri != hb.tri))
+            bad |= both & ~tied
+            if sc.slot_to_tri is not None:
+                bad |= both & (hc.prim != hb.prim)
+            else:
+                bad |= both & (hc.mat_id != hb.mat_id)
+            line[wname] = {"rays": int(live.sum()), "hits": int(both.sum()),
+                           "mismatches": int(bad.sum()), "bvh_ms": ms,
+                           "prim": ("through slot_to_tri"
+                                    if sc.slot_to_tri is not None
+                                    else "no slot map: materials")}
+            if int(bad.sum()):
+                failures.append(f"bvh route {name} {wname}: {int(bad.sum())} "
+                                "rays against the cluster route")
+        imgs = []
+        for trav in ("cluster_cuda", "bvh"):
+            ct.reset_launches()
+            pgather.reset_launches()
+            t0 = time.perf_counter()
+            imgs.append(progressive.render_once(
+                sc, cam, RenderConfig(traversal=trav, **base)))
+            torch.cuda.synchronize()
+            line[f"{trav}_render_s"] = time.perf_counter() - t0
+        launched = {k: v for k, v in launch_counts().items() if v}
+        diff = (imgs[0] - imgs[1]).abs().amax(-1)
+        line.update(max_abs_err=float(diff.max()), tolerance=BVH_IMAGE_TOL,
+                    bvh_render_launches=launched,
+                    mean=float(imgs[1].mean()))
+        print("bvh " + json.dumps(line), flush=True)
+        if launched:
+            failures.append(f"the bvh render of {name} launched {launched}")
+        if not bool(torch.isfinite(imgs[1]).all()) or (
+                line["max_abs_err"] > BVH_IMAGE_TOL):
+            failures.append(f"the bvh render of {name} disagrees with the "
+                            f"cluster route: {line['max_abs_err']}")
+        out[name] = line
+    return out
 
 
 def run() -> dict:
@@ -1186,7 +1574,7 @@ def run() -> dict:
 
     from pathtracing_tpu_torch.models import scene as scene_mod
     from pathtracing_tpu_torch.models import scenes
-    from pathtracing_tpu_torch.ops import cuda_build
+    from pathtracing_tpu_torch.ops import cuda_build, texture
     from pathtracing_tpu_torch.ops.camera import build_camera
     from pathtracing_tpu_torch.utils.config import RenderConfig
 
@@ -1353,7 +1741,15 @@ def run() -> dict:
                            failures, timed=True)
     del ris_idx
 
+    attr = {name: scenes.get_scene(name, device=DEVICE)
+            for name in ATTR_SCENES}
+    attr_cams = {name: build_camera(cc, WIDTH / HEIGHT, device=DEVICE)
+                 for name, (_, cc) in attr.items()}
+    attribute_wave_checks(attr, attr_cams, scene, cam_cfg, config, results,
+                          failures)
+
     big = big_scene_checks(camera, config, failures)
+    textured_big = textured_big_checks(camera, config, failures)
     if failures:
         raise SmokeFailure("kernel disagrees with its plain version: "
                            + "; ".join(failures))
@@ -1430,6 +1826,44 @@ def run() -> dict:
                                    flat_names + ("gather_rows_kernel",))
     check_routes(ris_label, ris_launches, flat_routes + ("gather_rows",))
 
+    # The surface-attribute slice: its three scenes, textured_demo with mips
+    # (the retrofit of the JAX CLI's --mips), the textured cornell_mesh(8),
+    # then the flagship through the other projections and a moving camera
+    # (one timed step each).
+    attr_launches = {}
+    mips_scene = attr["textured_demo"][0]._replace(
+        textures=texture.add_mips(attr["textured_demo"][0].textures))
+    if not scene_mod.uses_mips(mips_scene):
+        raise SmokeFailure("add_mips gave no mip table")
+    attr_renders = [(name, sc, attr_cams[name]) for name, (sc, _) in
+                    attr.items()]
+    attr_renders.append(("textured_demo mips", mips_scene,
+                         attr_cams["textured_demo"]))
+    for label, sc, cam in attr_renders:
+        _, la = timed_render(label, sc, cam, config, card, flat_names,
+                             ranges=True)
+        check_routes(label, la, flat_routes)
+        attr_launches[label] = la
+    paged_routes = ("trace_paged_dnf", "occluded_paged_dnf")
+    tb_label = f"textured cornell_mesh({BIG_SUBDIVISIONS})"
+    _, tb_launches = timed_render(
+        tb_label, textured_big["scene"], camera, config, card,
+        ("trace_paged_dnf_kernel", "occluded_paged_dnf_kernel"), ranges=True)
+    check_routes(tb_label, tb_launches, paged_routes)
+    for case in CAMERA_CASES:
+        label = f"flagship {case}"
+        _, la = timed_render(
+            label, scene, build_pose(camera_variant(cam_cfg, case),
+                                     WIDTH / HEIGHT),
+            config, card, flat_names, min_mean=MIN_MEAN.get(label, 0.05),
+            steps=1)
+        check_routes(label, la, flat_routes)
+        attr_launches[label] = la
+    reference_check()
+    bvh_checks(failures)
+    if failures:
+        raise SmokeFailure("; ".join(failures))
+
     phase("check")
     for name in NEW_SCENES:
         sc, cc = new[name]
@@ -1442,9 +1876,29 @@ def run() -> dict:
         lights_cam_cfg, "black", nee_candidates=RIS_M),
         flat_routes + ("gather_rows",))
     del new
+    for label, sc, _ in attr_renders:
+        cc = attr[label.split()[0]][1]
+        check_routes(f"small {label}",
+                     small_render_check(label, sc, sc, cc, "black"),
+                     flat_routes)
     small_scene, _ = scenes.cornell_mesh(3, device=DEVICE)
     small_render_check("cornell_mesh(3)", small_scene, small_scene, cam_cfg,
                        "black")
+    for case in CAMERA_CASES:
+        check_routes(f"small {case}", small_render_check(
+            f"cornell_mesh(3) {case}", small_scene, small_scene,
+            camera_variant(cam_cfg, case), "black"), flat_routes)
+    textured_small = scenes.textured_cornell_mesh_builder(3).build(
+        DEVICE, page_clusters=16)
+    check_routes("small textured paged", small_render_check(
+        "textured cornell_mesh(3) paged by 16", textured_small,
+        textured_small, cam_cfg, "black"), paged_routes)
+    inst_attr = attr_instanced_scene()
+    attr_inst_launches = small_render_check(
+        "instanced field over a textured ground", inst_attr, inst_attr,
+        inst_cam_cfg, inst_config.background)
+    check_routes("small instanced attributes", attr_inst_launches,
+                 ("trace_inst", "occluded_inst"))
     small_inst, _ = scenes.instanced_demo(grid=6, subdivisions=2,
                                           device=DEVICE)
     small_render_check("instanced_demo(6, 2)", small_inst, small_inst,
@@ -1476,7 +1930,8 @@ def run() -> dict:
     # Launches per render of 3 timed steps, in the scenes beside the main
     # path's (the flagship for rows 1-2, many_lights_demo for row 3).
     by_scene = {key: {**{name: la[key] for name, la in new_launches.items()},
-                      ris_label: ris_launches[key]}
+                      ris_label: ris_launches[key],
+                      **{name: la[key] for name, la in attr_launches.items()}}
                 for key in ("trace", "occluded", "gather_rows")}
     kernels = [
         kernel_entry(
@@ -1538,7 +1993,15 @@ def run() -> dict:
                                   ("ris_candidates", ris_res))},
         "launches_by_scene": by_scene["gather_rows"],
     })
-    kernels += big_entries(big, big_launches, tree_launches)
+    for name, waves in textured_big["results"].items():
+        big["results"][name].update(waves)
+    kernels += big_entries(big, big_launches, tree_launches, {
+        key: {big_label: big_launches[key], tb_label: tb_launches[key]}
+        for key in paged_routes})
+    for entry in kernels:
+        if entry["name"] in ("trace_dnf_inst", "occluded_dnf_inst"):
+            key = entry["name"].replace("_dnf", "")
+            entry["launches_small_attribute_render"] = attr_inst_launches[key]
     for entry in kernels:
         entry["ptxas"] = {k: v for k, v in ptxas.items()
                           if k.split("<")[0] == entry["kernel"]}

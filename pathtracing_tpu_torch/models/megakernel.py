@@ -6,7 +6,9 @@ Forward path tracing with emissive-surface, environment and delta
 lighting, NEE with MIS (optionally RIS light picks), BSDF sampling and
 Russian roulette from ``rr_start_depth``. Scenes with absorbing
 dielectrics (``mat_absorb``) carry each path's interior medium in the
-state.
+state, and scenes with a texture mip pyramid each path's distance from
+the camera (the ray cone). A moving camera is an ``(open, close)`` pair
+traced at each path's shutter time, the draw that object motion uses.
 Pixel and sample ids are global, so any chunking of the rows gives the
 same per-pixel results bit for bit. The scattered-rows and
 scattered-pixels modes of the JAX engine (the adaptive schedulers' waves)
@@ -85,14 +87,8 @@ def render_samples(scene, camera, config: RenderConfig, sample_start: int,
     return accum
 
 
-def shutter_times(config: RenderConfig, seed: int, pixel_index,
-                  sample_idx: int, keys):
-    """Per-path shutter time in [0, 1) for object motion blur, from the
-    stream camera motion draws from, so rigid camera and object motion stay
-    consistent. ``keys`` are the per-path keys of ``camera_sample``."""
-    if config.sampler == "ld":
-        return rng.ld_scalar(seed, pixel_index, sample_idx, rng.STREAM_TIME)
-    return rng.uniform(rng.stream_key(keys, 0, rng.STREAM_TIME))
+# Per-path shutter time for object and camera motion (one shared draw).
+shutter_times = shading.shutter_time
 
 
 def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
@@ -114,13 +110,18 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
 
     times = None
     if scene_mod.has_motion(scene):
+        # The draw a moving camera took in camera_sample.
         times = shutter_times(config, seed, pixel_index, sample_idx, keys)
-
     n = pixel_index.shape[0]
     dev = pixel_index.device
-    # (radiance, throughput, o, d, active, prev_pdf, prev_nee[, medium]):
-    # scenes with absorbing dielectrics carry each path's interior sigma_a
-    # (zeros: vacuum), and the compaction permutes it with the rest.
+    # (radiance, throughput, o, d, active, prev_pdf, prev_nee[, medium]
+    # [, cone]): scenes with absorbing dielectrics carry each path's
+    # interior sigma_a (zeros: vacuum), scenes with mips its distance from
+    # the camera (zeros), and the compaction permutes them with the rest.
+    # The state is decoded by the scene's flags, never by its length.
+    has_media = scene.mat_absorb is not None
+    has_mips = scene_mod.uses_mips(scene)
+    spread = shading.cone_spread_of(camera, config) if has_mips else None
     state = (
         torch.zeros((n, 3), dtype=torch.float32, device=dev),
         torch.ones((n, 3), dtype=torch.float32, device=dev),
@@ -129,8 +130,10 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
         torch.zeros(n, dtype=torch.float32, device=dev),
         torch.zeros(n, dtype=torch.bool, device=dev),
     )
-    if scene.mat_absorb is not None:
+    if has_media:
         state += (torch.zeros((n, 3), dtype=torch.float32, device=dev),)
+    if has_mips:
+        state += (torch.zeros(n, dtype=torch.float32, device=dev),)
     per_path = [keys, ld_nee, ld_scatter, times]
 
     def bounces(state, per_path, start, stop):
@@ -143,7 +146,9 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
                 prev_nee=state[6], ld_nee=ldn, ld_scatter=lds,
                 nee_candidates=config.nee_candidates,
                 return_shadow_count=True, time=tm,
-                medium=state[7] if len(state) > 7 else None,
+                medium=state[7] if has_media else None,
+                cone=state[7 + has_media] if has_mips else None,
+                cone_spread=spread,
             )
             if stats is not None:
                 stats["segments"] = stats.get("segments", 0) + state[4].sum()

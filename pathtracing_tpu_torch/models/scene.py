@@ -1,8 +1,9 @@
-"""Scene representation (the JAX package's ``models/scene.py``, as far as
-the ported paths need it): spheres, triangles, cluster tables, shared-
-geometry instances, the material table with its optional columns, the
-area-light table, delta lights and the environment map, as tensors on
-one device.
+"""Scene representation (the JAX package's ``models/scene.py``): spheres,
+triangles, the threaded BVH, cluster tables, shared-geometry instances,
+the material table with its optional columns, surface attributes (per-
+corner uvs and shading normals, the slot-indexed ``attr_pack``), the
+texture atlas, the area-light table, delta lights and the environment
+map, as tensors on one device.
 
 Layout invariants (as in the JAX package):
   * ≥ 1 sphere and ≥ 1 triangle always exist (degenerate, mat_id 0, never
@@ -18,22 +19,28 @@ the triangles to ``ops.cluster_trace``: the CUDA kernels for
 with ``instances`` goes to the instanced pair, a paged scene (``pages``)
 to the paged pair (closest hit and any hit), a flat scene of at most
 ``DNF_MAX_CLUSTERS`` clusters to the flat pair, and a larger unpaged one
-to the cluster-tree walk. ``scene_from_numpy`` takes the JAX package's
-Scene fields as numpy arrays, so one scene can feed both packages.
+to the cluster-tree walk. ``traversal="bvh"`` walks the threaded BVH
+instead (``ops.bvh.traverse``, plain torch), as the JAX package's CPU
+default does; it refuses instanced scenes. ``scene_from_numpy`` takes the
+JAX package's Scene fields as numpy arrays, so one scene can feed both
+packages.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from pathtracing_tpu_torch.models.meshes import smooth_vertex_normals
 from pathtracing_tpu_torch.ops import bvh as bvh_ops
 from pathtracing_tpu_torch.ops import clusters as cluster_ops
 from pathtracing_tpu_torch.ops import cluster_trace, envmap, intersect
 from pathtracing_tpu_torch.ops import lights, linalg
 from pathtracing_tpu_torch.ops import materials
+from pathtracing_tpu_torch.ops import texture as texture_ops
 from pathtracing_tpu_torch.utils.config import resolve_device
 
 
@@ -86,6 +93,29 @@ class Scene(NamedTuple):
     # (K,) f32 GGX anisotropy in [0, 1); None unless some material is
     # anisotropic.
     mat_aniso: torch.Tensor = None
+    # The threaded BVH over the stored triangles (ops.bvh.FlatBVH), walked
+    # by traversal="bvh". None for a scene made without one.
+    bvh: bvh_ops.FlatBVH = None
+    # Surface attributes, None unless the builder saw any (attribute-free
+    # scenes gather nothing): per-corner uvs (T, 3, 2) and shading normals
+    # (T, 3, 3) in stored triangle order (a zero shading-normal row means
+    # "use the geometric normal"); slot_to_tri (C*128,) i32 maps a padded
+    # cluster slot to its stored triangle row (-1: padding, or an
+    # instanced prototype's slot); attr_pack (C*128, 25) f32 holds, per
+    # slot, [valid, v0, e1, e2, shn (9), uv (6)] with the row arrays' own
+    # bits, so a cluster hit resolves its attributes by ONE gather.
+    attr_uv: torch.Tensor = None
+    attr_shn: torch.Tensor = None
+    slot_to_tri: torch.Tensor = None
+    attr_pack: torch.Tensor = None
+    # Image textures (ops.texture.TextureAtlas) and the per-material atlas
+    # ids (K,) i32 (-1: none) of the albedo texture, the tangent-space
+    # normal map and the metallic-roughness map; each column None unless
+    # some material uses it, the atlas None unless one does.
+    textures: texture_ops.TextureAtlas = None
+    mat_tex: torch.Tensor = None
+    mat_ntex: torch.Tensor = None
+    mat_mrtex: torch.Tensor = None
 
     @property
     def material_table(self):
@@ -102,22 +132,20 @@ class Hit(NamedTuple):
     front: torch.Tensor     # bool, geometric front side
     valid: torch.Tensor     # bool
     tri: torch.Tensor       # bool, hit a triangle (vs a sphere)
-    slot: torch.Tensor      # int32 padded cluster slot (-1 for spheres/misses)
+    # int32 stored triangle row of a triangle hit (-1 for spheres and
+    # misses, and on the cluster routes of a scene without slot_to_tri):
+    # the attribute row of the "bvh" route.
+    prim: torch.Tensor
+    # int32 padded cluster slot (-1 for spheres/misses); None on the "bvh"
+    # route. With attr_pack it resolves the attributes.
+    slot: torch.Tensor = None
 
 
 # Scene features of the JAX package that the port does not carry yet,
 # with the ROADMAP queue-A item that ports each.
 _UNPORTED_FIELDS = {
-    "attr_uv": "item 12 (surface attributes)",
-    "attr_shn": "item 12 (surface attributes)",
-    "slot_to_tri": "item 12 (surface attributes)",
-    "attr_pack": "item 12 (surface attributes)",
-    "textures": "item 12 (surface attributes)",
-    "mat_tex": "item 12 (surface attributes)",
     "mat_interior": "item 16 (media)",
     "fog": "item 16 (media)",
-    "mat_ntex": "item 12 (surface attributes)",
-    "mat_mrtex": "item 12 (surface attributes)",
     "vol": "item 16 (media)",
 }
 
@@ -135,10 +163,11 @@ def _fields(x):
 def scene_from_numpy(arrays, device) -> Scene:
     """The port's Scene from the JAX package's Scene fields as numpy
     arrays (a dict, or the Scene NamedTuple mapped through ``np.asarray``;
-    ``clusters``, ``lights``, ``instances`` and ``pages`` may be dicts or
-    NamedTuples). Fields the port does not carry must be None; the JAX BVH
-    and the TPU lookahead kernel's ``cand_box`` blocks are dropped. A
-    cluster set without a tree gets one (``clusters.with_tree``)."""
+    ``clusters``, ``lights``, ``instances``, ``pages``, ``bvh`` and
+    ``textures`` may be dicts or NamedTuples). Fields the port does not
+    carry must be None; the TPU lookahead kernel's ``cand_box`` blocks are
+    dropped. A cluster set without a tree gets one
+    (``clusters.with_tree``)."""
     arrays = _fields(arrays)
     for name, item in _UNPORTED_FIELDS.items():
         if arrays.get(name) is not None:
@@ -151,19 +180,12 @@ def scene_from_numpy(arrays, device) -> Scene:
     def dev(x, dtype):
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
-    cl = _fields(arrays["clusters"])
-    li = _fields(arrays["lights"])
-    for name in ("uv0", "uv_e1", "uv_e2", "tex"):
-        if li.get(name) is not None:
-            raise NotImplementedError(
-                f"light-table column {name!r} (textured emitters) is not "
-                "ported yet (ROADMAP queue A item 12)"
-            )
-
     def opt(table, name, dtype):
         x = table.get(name)
         return None if x is None else dev(x, dtype)
 
+    cl = _fields(arrays["clusters"])
+    li = _fields(arrays["lights"])
     # The flat kernels walk the set's cluster tree: a set that comes
     # without one gets one, built over its real clusters.
     host_cl = cluster_ops.with_tree(cluster_ops.ClusterSet(**{
@@ -171,6 +193,19 @@ def scene_from_numpy(arrays, device) -> Scene:
         for f in cluster_ops.ClusterSet._fields}))
     fields = {n: dev(arrays[n], torch.float32) for n in _FLOAT_FIELDS}
     fields.update({n: dev(arrays[n], torch.int32) for n in _INT_FIELDS})
+    for n in ("attr_uv", "attr_shn", "attr_pack"):
+        fields[n] = opt(arrays, n, torch.float32)
+    for n in ("slot_to_tri", "mat_tex", "mat_ntex", "mat_mrtex"):
+        fields[n] = opt(arrays, n, torch.int32)
+    if arrays.get("bvh") is not None:
+        bv = _fields(arrays["bvh"])
+        fields["bvh"] = bvh_ops.FlatBVH(
+            node_min=dev(bv["node_min"], torch.float32),
+            node_max=dev(bv["node_max"], torch.float32),
+            node_meta=dev(bv["node_meta"], torch.int32))
+    if arrays.get("textures") is not None:
+        fields["textures"] = texture_ops.to_device(
+            texture_ops.TextureAtlas(**_fields(arrays["textures"])), device)
     instances = None
     if arrays.get("instances") is not None:
         it = _fields(arrays["instances"])
@@ -199,9 +234,9 @@ def scene_from_numpy(arrays, device) -> Scene:
             oct_links=dev(pg["oct_links"], torch.int32),
             n_real=(node_meta[:, 1] >= 0).sum(dim=1, dtype=torch.int32),
         )
-    light_cols = {n: dev(li[n], torch.float32)
-                  for n in lights.LightTable._fields
-                  if n not in ("kind", "packed")}
+    light_cols = {n: opt(li, n, torch.int32 if n in ("kind", "tex")
+                         else torch.float32)
+                  for n in lights.LightTable._fields}
     env = delta = None
     if arrays.get("env") is not None:
         ev = _fields(arrays["env"])
@@ -225,11 +260,7 @@ def scene_from_numpy(arrays, device) -> Scene:
             None if x is None else dev(x, _CLUSTER_DTYPES.get(f,
                                                              torch.float32))
             for f, x in zip(cluster_ops.ClusterSet._fields, host_cl))),
-        lights=lights.LightTable(
-            kind=opt(li, "kind", torch.int32),
-            packed=opt(li, "packed", torch.float32),
-            **light_cols,
-        ),
+        lights=lights.LightTable(**light_cols),
         **fields,
     )
 
@@ -240,8 +271,10 @@ class SceneBuilder:
 
     def __init__(self) -> None:
         self._sph = []         # (center, radius, mat)
-        self._tri = []         # (v0, v1, v2, mat)
-        self._tri_chunks = []  # (v0 (k,3), v1, v2, mat (k,)) arrays
+        self._tri = []         # (v0, v1, v2, mat, uv3 | None)
+        # (v0 (k,3), v1, v2, mat (k,), uv3 (k,3,2) | None,
+        #  shn3 (k,3,3) | None) arrays
+        self._tri_chunks = []
         self._mat = []         # (type, albedo, param, emit)
         self._mat_metallic = []  # per-material metallic (principled)
         self._mat_cc = []      # per-material (clearcoat, coat roughness)
@@ -249,6 +282,11 @@ class SceneBuilder:
         self._mat_param2 = []  # per-material second scalar (rough alpha)
         self._mat_disp = []    # per-material IOR dispersion (blue - red)
         self._mat_aniso = []   # per-material GGX anisotropy [0, 1)
+        self._mat_tex = []     # per-material texture id (-1 = none)
+        self._mat_ntex = []    # per-material normal-map id (-1 = none)
+        self._mat_mrtex = []   # per-material metallic-roughness map id
+        self._tex = []         # host texture images (H, W, 3) f32
+        self._mipmaps = False  # build a mip pyramid into the atlas
         # (v0, e1, e2, mats, [(3,4) transforms], [imat], [motion (3,4)])
         self._protos = []
         self._delta = []       # delta-light spec dicts (ops.lights)
@@ -296,13 +334,50 @@ class SceneBuilder:
                      if isinstance(texels_or_envmap, envmap.EnvMap)
                      else np.asarray(texels_or_envmap, np.float32))
 
+    # -- textures ----------------------------------------------------------
+    def set_mipmaps(self, enabled: bool = True) -> None:
+        """Build a box-filtered mip pyramid into the texture atlas and
+        render with ray-cone LOD selection (``ops.texture``). Off by
+        default: the mip-free atlas keeps its layout and the engine its
+        state."""
+        self._mipmaps = bool(enabled)
+
+    def add_texture(self, image, srgb: bool = True) -> int:
+        """Register an (H, W, 3) linear float image; returns the texture id
+        to pass as a material's ``texture=`` (or ``normal_map=``,
+        ``mr_texture=``). Image files are not ported yet (ROADMAP queue A
+        item 18): ``srgb`` only matters for them."""
+        if isinstance(image, (str, os.PathLike)):
+            raise NotImplementedError(
+                "loading a texture from a file is not ported yet (ROADMAP "
+                "queue A item 18); pass an (H, W, 3) array"
+            )
+        self._tex.append(np.asarray(image, np.float32))
+        return len(self._tex) - 1
+
+    def _tex_id(self, texture, srgb: bool = True) -> int:
+        if texture is None:
+            return -1
+        if isinstance(texture, int):
+            if not 0 <= texture < len(self._tex):
+                raise ValueError(f"unknown texture id {texture}")
+            return texture
+        return self.add_texture(texture, srgb=srgb)
+
     # -- materials ---------------------------------------------------------
     def add_material(self, mtype, albedo=(0.0, 0.0, 0.0), param=0.0,
-                     emit=(0.0, 0.0, 0.0), absorption=(0.0, 0.0, 0.0),
-                     param2=0.0, dispersion=0.0, metallic=0.0,
-                     clearcoat=0.0, clearcoat_roughness=0.1,
-                     anisotropy=0.0, scattering=0.0) -> int:
-        """``absorption``: interior Beer–Lambert sigma_a per channel (on
+                     emit=(0.0, 0.0, 0.0), texture=None,
+                     absorption=(0.0, 0.0, 0.0), param2=0.0,
+                     normal_map=None, dispersion=0.0, metallic=0.0,
+                     mr_texture=None, clearcoat=0.0,
+                     clearcoat_roughness=0.1, anisotropy=0.0,
+                     scattering=0.0) -> int:
+        """``texture``: a texture id, or an image array, whose texel
+        MODULATES the albedo (the emission of an emitter) at uv-mapped hits;
+        ``normal_map``: a tangent-space normal map (texels decode as
+        2·rgb − 1 = (t, b, n)); ``mr_texture``: a metallic-roughness map
+        (G scales the roughness, B the metallic).
+        ``absorption``: interior Beer–Lambert sigma_a per channel (on
         dielectrics: paths inside lose exp(−sigma_a · distance));
         ``param2``: the rough dielectric's GGX alpha; ``dispersion``: the
         IOR spread of a smooth dielectric; ``anisotropy`` in [0, 1): the
@@ -323,34 +398,43 @@ class SceneBuilder:
         self._mat_metallic.append(float(metallic))
         self._mat_cc.append((float(clearcoat), float(clearcoat_roughness)))
         self._mat_aniso.append(float(anisotropy))
+        self._mat_tex.append(self._tex_id(texture))
+        self._mat_ntex.append(self._tex_id(normal_map, srgb=False))
+        self._mat_mrtex.append(self._tex_id(mr_texture, srgb=False))
         return len(self._mat) - 1
 
-    def lambertian(self, albedo) -> int:
-        return self.add_material(materials.TYPE_LAMBERTIAN, albedo)
+    def lambertian(self, albedo, texture=None, normal_map=None) -> int:
+        return self.add_material(materials.TYPE_LAMBERTIAN, albedo,
+                                 texture=texture, normal_map=normal_map)
 
-    def metal(self, albedo, fuzz=0.0) -> int:
-        return self.add_material(materials.TYPE_METAL, albedo, fuzz)
+    def metal(self, albedo, fuzz=0.0, texture=None, normal_map=None) -> int:
+        return self.add_material(materials.TYPE_METAL, albedo, fuzz,
+                                 texture=texture, normal_map=normal_map)
 
-    def ggx(self, f0, roughness=0.1, anisotropy=0.0) -> int:
+    def ggx(self, f0, roughness=0.1, texture=None, normal_map=None,
+            anisotropy=0.0) -> int:
         """Microfacet conductor: f0 = Fresnel normal reflectance,
         roughness = GGX alpha. Unlike ``metal`` it has a real pdf, so
         glossy vertices take part in NEE/MIS. ``anisotropy`` in [0, 1)
         stretches the NDF along the surface tangent (Disney aspect
         convention): brushed-metal highlights."""
         return self.add_material(materials.TYPE_GGX, f0, roughness,
+                                 texture=texture, normal_map=normal_map,
                                  anisotropy=anisotropy)
 
     def principled(self, base_color, metallic=0.0, roughness=0.5,
+                   texture=None, normal_map=None, mr_texture=None,
                    clearcoat=0.0, clearcoat_roughness=0.1) -> int:
         """Metallic-roughness material: diffuse + GGX specular with
         F0 = lerp(0.04, base_color, metallic); ``roughness`` is perceptual
         (GGX alpha = roughness²). Fully NEE/MIS-eligible. ``clearcoat``
         adds a second GGX layer at fixed IOR 1.5 with its own
         ``clearcoat_roughness``; the layer's Fresnel attenuates the base
-        lobes. Texture, normal and metallic-roughness maps are not ported
-        yet (ROADMAP queue A item 12)."""
+        lobes. ``texture`` modulates the base color; ``mr_texture`` is a
+        metallic-roughness map (G scales ``roughness``, B ``metallic``)."""
         return self.add_material(
             materials.TYPE_PRINCIPLED, base_color, roughness,
+            texture=texture, normal_map=normal_map, mr_texture=mr_texture,
             metallic=metallic, clearcoat=clearcoat,
             clearcoat_roughness=clearcoat_roughness,
         )
@@ -376,9 +460,12 @@ class SceneBuilder:
             dispersion=dispersion, scattering=scattering,
         )
 
-    def emissive(self, radiance) -> int:
+    def emissive(self, radiance, texture=None) -> int:
+        """``texture`` modulates the emitted radiance by the texel at the
+        hit or sampled uv (the emitter needs uvs); light selection and the
+        MIS pdfs stay on the base ``radiance``."""
         return self.add_material(materials.TYPE_EMISSIVE, (0.0, 0.0, 0.0),
-                                 0.0, radiance)
+                                 0.0, radiance, texture=texture)
 
     def checker(self, color1, color2, frequency: float = 3.0) -> int:
         """Procedural two-tone Lambertian (world-space checkerboard); the
@@ -390,28 +477,53 @@ class SceneBuilder:
     def add_sphere(self, center, radius, mat_id) -> None:
         self._sph.append((tuple(center), float(radius), int(mat_id)))
 
-    def add_triangle(self, v0, v1, v2, mat_id) -> None:
-        self._tri.append((tuple(v0), tuple(v1), tuple(v2), int(mat_id)))
+    def add_triangle(self, v0, v1, v2, mat_id, uv=None) -> None:
+        """``uv`` (optional): three (u, v) pairs, one per corner."""
+        uv3 = None if uv is None else tuple(
+            (float(p[0]), float(p[1])) for p in uv)
+        self._tri.append((tuple(v0), tuple(v1), tuple(v2), int(mat_id),
+                          uv3))
 
-    def add_quad(self, corner, edge_u, edge_v, mat_id) -> None:
-        """Parallelogram as two triangles (Cornell walls)."""
+    def add_quad(self, corner, edge_u, edge_v, mat_id, uv=False) -> None:
+        """Parallelogram as two triangles (Cornell walls). ``uv=True``
+        attaches the unit square's coordinates (corner (0, 0), corner +
+        edge_u (1, 0), corner + edge_v (0, 1))."""
         c = np.asarray(corner, np.float64)
         u = np.asarray(edge_u, np.float64)
         v = np.asarray(edge_v, np.float64)
-        self.add_triangle(c, c + u, c + u + v, mat_id)
-        self.add_triangle(c, c + u + v, c + v, mat_id)
+        uv_a = ((0, 0), (1, 0), (1, 1)) if uv else None
+        uv_b = ((0, 0), (1, 1), (0, 1)) if uv else None
+        self.add_triangle(c, c + u, c + u + v, mat_id, uv=uv_a)
+        self.add_triangle(c, c + u + v, c + v, mat_id, uv=uv_b)
 
-    def add_mesh(self, vertices: np.ndarray, faces: np.ndarray,
-                 mat_id) -> None:
+    def add_mesh(self, vertices: np.ndarray, faces: np.ndarray, mat_id,
+                 uvs=None, uv_faces=None, normals=None, normal_faces=None,
+                 smooth: bool = False) -> None:
         """Indexed triangle mesh: vertices (V,3) float, faces (F,3) int,
-        stored as one array chunk (UVs and shading normals are not ported
-        yet: ROADMAP queue A item 12)."""
+        stored as one array chunk. Optional surface attributes: ``uvs``
+        (U, 2) with ``uv_faces`` (F, 3) (default ``faces``); shading
+        ``normals`` (M, 3) with ``normal_faces`` (F, 3) (default
+        ``faces``); ``smooth=True`` derives area-weighted vertex normals
+        (``models.meshes.smooth_vertex_normals``) when none are given."""
         vertices = np.asarray(vertices, np.float64)
         faces = np.asarray(faces, np.int64)
         tri = vertices[faces]  # (F, 3, 3)
+        uv3 = None
+        if uvs is not None:
+            uvf = faces if uv_faces is None else np.asarray(uv_faces,
+                                                            np.int64)
+            uv3 = np.asarray(uvs, np.float64)[uvf].astype(np.float32)
+        shn3 = None
+        if normals is None and smooth:
+            normals = smooth_vertex_normals(vertices, faces)
+            normal_faces = faces
+        if normals is not None:
+            nf = faces if normal_faces is None else np.asarray(
+                normal_faces, np.int64)
+            shn3 = np.asarray(normals, np.float64)[nf].astype(np.float32)
         self._tri_chunks.append((
             tri[:, 0], tri[:, 1], tri[:, 2],
-            np.full(tri.shape[0], int(mat_id), np.int32),
+            np.full(tri.shape[0], int(mat_id), np.int32), uv3, shn3,
         ))
 
     def add_instances(self, vertices: np.ndarray, faces: np.ndarray,
@@ -508,15 +620,22 @@ class SceneBuilder:
         chunks = list(self._tri_chunks)
         if self._tri:
             t = self._tri
+            uv3 = None
+            if any(x[4] is not None for x in t):
+                uv3 = np.zeros((len(t), 3, 2), np.float32)
+                for i, x in enumerate(t):
+                    if x[4] is not None:
+                        uv3[i] = x[4]
             chunks.append((
                 np.array([x[0] for x in t], np.float64),
                 np.array([x[1] for x in t], np.float64),
                 np.array([x[2] for x in t], np.float64),
                 np.array([x[3] for x in t], np.int32),
+                uv3, None,
             ))
         if not chunks:
             z = np.zeros((1, 3), np.float64)
-            chunks = [(z, z, z, np.zeros(1, np.int32))]
+            chunks = [(z, z, z, np.zeros(1, np.int32), None, None)]
         v0 = np.concatenate([c[0] for c in chunks]).astype(np.float32)
         v1 = np.concatenate([c[1] for c in chunks]).astype(np.float32)
         v2 = np.concatenate([c[2] for c in chunks]).astype(np.float32)
@@ -524,10 +643,27 @@ class SceneBuilder:
         e1 = v1 - v0
         e2 = v2 - v0
 
-        # The leaf-size-4 BVH only fixes the stored triangle order (which
-        # the light table, and so the light picks, follow).
-        _, perm = bvh_ops.build_bvh(v0, e1, e2)
-        cl, _, _ = cluster_ops.build_clusters(v0, e1, e2, tri_mat)
+        def gather_attr(col: int, width: int):
+            """Column ``col`` of the chunks (uvs, shading normals) over
+            all triangles, zeros for chunks without it; None when no
+            chunk has it."""
+            if not any(c[col] is not None for c in chunks):
+                return None
+            return np.concatenate([
+                c[col].astype(np.float32) if c[col] is not None
+                else np.zeros((c[0].shape[0], 3, width), np.float32)
+                for c in chunks])
+
+        attr_uv = gather_attr(4, 2)
+        attr_shn = gather_attr(5, 3)
+        has_attrs = attr_uv is not None or attr_shn is not None
+
+        # The leaf-size-4 BVH fixes the stored triangle order (which the
+        # light table, and so the light picks, follow) and is the "bvh"
+        # route's tree.
+        (node_min, node_max, node_meta), perm = bvh_ops.build_bvh(v0, e1,
+                                                                  e2)
+        cl, _, slot_to_tri = cluster_ops.build_clusters(v0, e1, e2, tri_mat)
         over_budget = cl.woop.shape[0] > cluster_trace.DNF_MAX_CLUSTERS
         if self._protos and (page_clusters or over_budget):
             raise ValueError(
@@ -538,22 +674,61 @@ class SceneBuilder:
         pages = None
         if page_clusters or over_budget or (
                 cl.node_meta.shape[1] > cluster_ops.CAND_MAX_NODES):
-            cl, pages, _ = cluster_ops.build_pages(
+            cl, pages, page_remap = cluster_ops.build_pages(
                 cl, page_clusters or cluster_ops.PAGE_CLUSTERS
             )
+            slot_to_tri = cluster_ops.remap_slot_to_tri(
+                slot_to_tri, page_remap, cl.aabb_min.shape[0])
         v0, e1, e2, tri_mat = v0[perm], e1[perm], e2[perm], tri_mat[perm]
+        if has_attrs:
+            # Attribute rows follow the stored (BVH) order; the slots'
+            # input indices are retargeted to stored rows.
+            if attr_uv is not None:
+                attr_uv = attr_uv[perm]
+            if attr_shn is not None:
+                attr_shn = attr_shn[perm]
+            inv_perm = np.empty(perm.shape[0], np.int64)
+            inv_perm[perm] = np.arange(perm.shape[0])
+            slot_to_tri = np.where(
+                slot_to_tri >= 0, inv_perm[np.maximum(slot_to_tri, 0)], -1,
+            ).astype(np.int32)
 
         mat_type = np.array([m[0] for m in self._mat], np.int32)
         instances = None
         if self._protos:
+            n_base = cl.aabb_min.shape[0]
             cl, instances = self._expand_protos(cl, mat_type)
+            if has_attrs:
+                # Prototype slots carry no attribute rows: instanced hits
+                # resolve prim -1 and keep the geometric normal.
+                slot_to_tri = np.concatenate([slot_to_tri, np.full(
+                    (cl.aabb_min.shape[0] - n_base) * cluster_ops.CLUSTER_SIZE,
+                    -1, np.int32)])
+
+        # The slot-indexed attribute rows, built LAST, so that slot_to_tri
+        # already carries the page remap and the prototype padding.
+        attr_pack = None
+        if has_attrs:
+            s_valid = slot_to_tri >= 0
+            s_idx = np.maximum(slot_to_tri, 0)
+            attr_pack = np.zeros((slot_to_tri.shape[0], 25), np.float32)
+            attr_pack[:, 0] = s_valid
+            attr_pack[:, 1:4] = v0[s_idx]
+            attr_pack[:, 4:7] = e1[s_idx]
+            attr_pack[:, 7:10] = e2[s_idx]
+            if attr_shn is not None:
+                attr_pack[:, 10:19] = attr_shn[s_idx].reshape(-1, 9)
+            if attr_uv is not None:
+                attr_pack[:, 19:25] = attr_uv[s_idx].reshape(-1, 6)
+            attr_pack *= s_valid[:, None]
 
         mat_albedo = np.array([m[1] for m in self._mat], np.float32)
         mat_param = np.array([m[2] for m in self._mat], np.float32)
         mat_emit = np.array([m[3] for m in self._mat], np.float32)
 
         def dev(x, dtype=torch.float32):
-            return torch.as_tensor(x, dtype=dtype, device=device)
+            return None if x is None else torch.as_tensor(x, dtype=dtype,
+                                                          device=device)
 
         mat_metallic = mat_clearcoat = None
         if (mat_type == materials.TYPE_PRINCIPLED).any():
@@ -572,6 +747,18 @@ class SceneBuilder:
                       else None)
         mat_disp = dev(disp) if (disp > 0.0).any() else None
         mat_aniso = dev(aniso) if (aniso > 0.0).any() else None
+        # Texture columns, likewise; the atlas only when some material
+        # uses a texture.
+        tex_cols = {f: np.array(getattr(self, "_" + f), np.int32)
+                    for f in ("mat_tex", "mat_ntex", "mat_mrtex")}
+        used = {f: bool((c >= 0).any()) for f, c in tex_cols.items()}
+        textures = None
+        if self._tex and any(used.values()):
+            textures = texture_ops.to_device(
+                texture_ops.build_atlas(self._tex, mips=self._mipmaps),
+                device)
+        tex_fields = {f: dev(c, torch.int32) if textures is not None
+                      and used[f] else None for f, c in tex_cols.items()}
         env = self._env
         if isinstance(env, envmap.EnvMap):
             env = envmap.EnvMap(*(x.to(device) for x in env))
@@ -599,6 +786,8 @@ class SceneBuilder:
             sph_mat=dev(sph_mat, torch.int32),
             tri_v0=dev(v0), tri_e1=dev(e1), tri_e2=dev(e2),
             tri_mat=dev(tri_mat, torch.int32),
+            bvh=bvh_ops.FlatBVH(dev(node_min), dev(node_max),
+                                dev(node_meta, torch.int32)),
             mat_type=dev(mat_type, torch.int32), mat_albedo=dev(mat_albedo),
             mat_param=dev(mat_param), mat_emit=dev(mat_emit),
             clusters=dev_all(cl),
@@ -606,8 +795,13 @@ class SceneBuilder:
                 v0, v0 + e1, v0 + e2, tri_mat, mat_type, mat_emit,
                 materials.TYPE_EMISSIVE, device,
                 sph_center=sph_center, sph_radius=sph_radius,
-                sph_mat=sph_mat,
+                sph_mat=sph_mat, tri_uv=attr_uv,
+                tri_tex=(tex_cols["mat_tex"][tri_mat] if used["mat_tex"]
+                         else None),
             ),
+            attr_uv=dev(attr_uv), attr_shn=dev(attr_shn),
+            slot_to_tri=dev(slot_to_tri, torch.int32) if has_attrs else None,
+            attr_pack=dev(attr_pack), textures=textures, **tex_fields,
         )
 
     def _expand_protos(self, cl, mat_type):
@@ -664,8 +858,10 @@ def has_motion(scene: Scene) -> bool:
 
 
 def uses_mips(scene: Scene) -> bool:
-    """Texture mip pyramids are not ported yet: always False."""
-    return False
+    """True when the texture atlas carries a mip pyramid: the engine then
+    carries each path's distance from the camera (the ray cone) and
+    shading picks a texture LOD from it."""
+    return scene.textures is not None and scene.textures.mip_table is not None
 
 
 def uses_dnf(scene: Scene) -> bool:
@@ -738,11 +934,6 @@ def _cluster_query(scene: Scene, query: str, traversal: str):
     take the instanced pair (``time`` is the per-ray shutter time of a
     motion set); the other routes ignore ``time``."""
     route = cluster_route(scene)
-    if route == "instanced" and traversal == "bvh":
-        raise ValueError(
-            "instanced scenes need a cluster traversal mode (the BVH only "
-            "indexes base triangles)"
-        )
     if traversal not in ("cluster_torch", "cluster_cuda"):
         raise ValueError(f"unknown traversal mode: {traversal!r}")
     fn = _ROUTES[query, route][traversal == "cluster_cuda"]
@@ -755,13 +946,198 @@ def _cluster_query(scene: Scene, query: str, traversal: str):
     return lambda o, d, cap, time: fn(scene.clusters, o, d, cap)
 
 
+def surface_attributes(scene: Scene, hit: Hit, cone_width=None):
+    """Interpolated shading normal and texture coordinates of a hit batch.
+
+    Returns (normal (R, 3), uv (R, 2)); with ``cone_width`` ((R,) f32, the
+    ray cone's world-space width at the hit) also the (R,) UV-per-world
+    density sqrt(|det_uv| / |e1 × e2|), and normal-map lookups are
+    trilinear at the matching LOD.
+
+    A cluster hit resolves its triangle rows and attributes by ONE gather
+    of ``attr_pack`` by its slot; a "bvh" hit (no slot) gathers the row
+    arrays by ``prim``. Barycentrics come from the hit point against the
+    (v0, e1, e2) rows by elementwise dots (never a matmul). The
+    interpolated normal is flipped into the geometric (ray-facing)
+    hemisphere; a zero shading-normal row keeps the geometric normal.
+    Sphere hits keep their analytic normal and take lat-long uvs from it.
+    A tangent-space normal map (``mat_ntex``) perturbs the normal in the
+    uv-aligned triangle frame, or the sphere's lat-long frame, built
+    around the current shading normal."""
+    r = hit.t.shape[0]
+    dev = hit.t.device
+    if scene.attr_pack is not None and hit.slot is not None:
+        safe_slot = torch.clamp(hit.slot, 0, scene.attr_pack.shape[0] - 1)
+        pack = scene.attr_pack[safe_slot.long()]
+        tri = hit.tri & (pack[:, 0] > 0.0)
+        v0, e1, e2 = pack[:, 1:4], pack[:, 4:7], pack[:, 7:10]
+        shn = (pack[:, 10:19].reshape(r, 3, 3)
+               if scene.attr_shn is not None else None)
+        uvs = (pack[:, 19:25].reshape(r, 3, 2)
+               if scene.attr_uv is not None else None)
+    else:
+        tri = hit.tri & (hit.prim >= 0)
+        safe = torch.clamp(hit.prim, 0, scene.tri_v0.shape[0] - 1).long()
+        v0, e1, e2 = scene.tri_v0[safe], scene.tri_e1[safe], scene.tri_e2[safe]
+        shn = scene.attr_shn[safe] if scene.attr_shn is not None else None
+        uvs = scene.attr_uv[safe] if scene.attr_uv is not None else None
+
+    # Barycentrics (u along e1, v along e2) from the edge basis.
+    p = hit.position - v0
+    d11 = linalg.dot(e1, e1)
+    d12 = linalg.dot(e1, e2)
+    d22 = linalg.dot(e2, e2)
+    dp1 = linalg.dot(p, e1)
+    dp2 = linalg.dot(p, e2)
+    det = torch.clamp(d11 * d22 - d12 * d12, min=1e-20)
+    bu = torch.clamp((d22 * dp1 - d12 * dp2) / det, 0.0, 1.0)
+    bv = torch.clamp((d11 * dp2 - d12 * dp1) / det, 0.0, 1.0)
+    bw = torch.clamp(1.0 - bu - bv, 0.0, 1.0)
+
+    normal = hit.normal
+    if shn is not None:
+        ns = (bw[:, None] * shn[:, 0] + bu[:, None] * shn[:, 1]
+              + bv[:, None] * shn[:, 2])
+        len2 = linalg.dot(ns, ns)
+        ok = tri & (len2 > 1e-12)
+        ns = ns / torch.sqrt(torch.clamp(len2, min=1e-20))[:, None]
+        flip = torch.where(linalg.dot(ns, hit.normal) < 0.0, -1.0, 1.0)
+        normal = torch.where(ok[:, None], ns * flip[:, None], hit.normal)
+
+    if uvs is not None:
+        uv_tri = (bw[:, None] * uvs[:, 0] + bu[:, None] * uvs[:, 1]
+                  + bv[:, None] * uvs[:, 2])
+    else:
+        uv_tri = torch.zeros((r, 2), dtype=torch.float32, device=dev)
+
+    # Spheres: lat-long uvs of the geometric normal.
+    n = hit.normal
+    su = 0.5 + torch.atan2(n[:, 2], n[:, 0]) * (0.5 / np.pi)
+    sv = 0.5 + torch.asin(torch.clamp(n[:, 1], -1.0, 1.0)) * (1.0 / np.pi)
+    uv = torch.where(tri[:, None], uv_tri, torch.stack([su, sv], dim=-1))
+
+    dens = lod_base = None
+    if cone_width is not None:
+        # UV-per-world density for the LOD: the triangle's uv area over
+        # its world area, as a length scale (sphere and uv-less hits: 0,
+        # so their LOD clamps to level 0).
+        if uvs is not None:
+            duv1d = uvs[:, 1] - uvs[:, 0]
+            duv2d = uvs[:, 2] - uvs[:, 0]
+            det_d = torch.abs(duv1d[:, 0] * duv2d[:, 1]
+                              - duv2d[:, 0] * duv1d[:, 1])
+            c = linalg.cross(e1, e2)
+            area_w = torch.sqrt(torch.clamp(linalg.dot(c, c), min=1e-30))
+            dens = torch.where(tri, torch.sqrt(det_d / area_w), 0.0)
+        else:
+            dens = torch.zeros(r, dtype=torch.float32, device=dev)
+        lod_base = torch.log2(torch.clamp(cone_width * dens, min=1e-20))
+
+    if scene.mat_ntex is not None and scene.textures is not None:
+        ntex_id = scene.mat_ntex[
+            torch.clamp(hit.mat_id, 0, scene.mat_ntex.shape[0] - 1).long()]
+        if scene.attr_uv is not None:
+            duv1 = uvs[:, 1] - uvs[:, 0]
+            duv2 = uvs[:, 2] - uvs[:, 0]
+        else:
+            duv1 = torch.zeros((r, 2), dtype=torch.float32, device=dev)
+            duv2 = torch.zeros((r, 2), dtype=torch.float32, device=dev)
+        det_uv = duv1[:, 0] * duv2[:, 1] - duv2[:, 0] * duv1[:, 1]
+        inv = 1.0 / torch.where(torch.abs(det_uv) > 1e-12, det_uv, 1.0)
+        t_tri = (duv2[:, 1:2] * e1 - duv1[:, 1:2] * e2) * inv[:, None]
+        b_tri = (duv1[:, 0:1] * e2 - duv2[:, 0:1] * e1) * inv[:, None]
+
+        # Sphere frame: T along +phi (the lat-long map's u axis).
+        rxz = torch.sqrt(torch.clamp(n[:, 0] * n[:, 0] + n[:, 2] * n[:, 2],
+                                     min=1e-20))
+        t_sph = torch.stack([-n[:, 2] / rxz, torch.zeros_like(rxz),
+                             n[:, 0] / rxz], dim=-1)
+        at_pole = rxz < 1e-6
+        t_raw = torch.where(tri[:, None], t_tri, t_sph)
+        b_raw = torch.where(tri[:, None], b_tri, linalg.cross(normal, t_sph))
+
+        # Gram-Schmidt against the shading normal; the bitangent's sign
+        # follows the uv winding.
+        t_p = t_raw - normal * linalg.dot(normal, t_raw)[:, None]
+        t_len2 = linalg.dot(t_p, t_p)
+        t_hat = t_p / torch.sqrt(torch.clamp(t_len2, min=1e-20))[:, None]
+        b_cross = linalg.cross(normal, t_hat)
+        handed = torch.where(linalg.dot(b_cross, b_raw) < 0.0, -1.0, 1.0)
+        b_hat = b_cross * handed[:, None]
+
+        if lod_base is not None and scene.textures.mip_table is not None:
+            texel = texture_ops.sample_trilinear(scene.textures, ntex_id, uv,
+                                                 lod_base)
+        else:
+            texel = texture_ops.sample_bilinear(scene.textures, ntex_id, uv)
+        tn = 2.0 * texel - 1.0
+        n_map = (tn[:, 0:1] * t_hat + tn[:, 1:2] * b_hat
+                 + tn[:, 2:3] * normal)
+        len2 = linalg.dot(n_map, n_map)
+        n_map = n_map / torch.sqrt(torch.clamp(len2, min=1e-20))[:, None]
+        flip = torch.where(linalg.dot(n_map, hit.normal) < 0.0, -1.0, 1.0)
+        tangent_ok = torch.where(tri, torch.abs(det_uv) > 1e-12, ~at_pole)
+        mapped = (hit.valid & (ntex_id >= 0) & tangent_ok
+                  & (len2 > 1e-12) & (t_len2 > 1e-12))
+        normal = torch.where(mapped[:, None], n_map * flip[:, None], normal)
+
+    if cone_width is not None:
+        return normal, uv, dens
+    return normal, uv
+
+
+def intersect_scene(scene: Scene, origin, direction) -> Hit:
+    """Closest hit of a (R, 3) ray batch through the threaded BVH (the
+    "bvh" route, the JAX package's vmapped ``intersect_scene``): spheres
+    by brute force, triangles by ``ops.bvh.traverse`` culled against the
+    best sphere t. The Hit carries ``prim`` and no slot."""
+    if scene.instances is not None:
+        raise ValueError(
+            "instanced scenes need a cluster traversal mode (the BVH only "
+            "indexes base triangles)"
+        )
+    ts = _sphere_pass(scene, origin, direction)
+    sph_t, sph_idx = torch.min(ts, dim=1)
+    tri_t, tri_idx = bvh_ops.traverse(
+        scene.bvh, scene.tri_v0, scene.tri_e1, scene.tri_e2, origin,
+        direction, sph_t)
+    hit_tri = tri_t < sph_t
+    t = torch.where(hit_tri, tri_t, sph_t)
+    valid = torch.isfinite(t)
+    position = origin + t[:, None] * direction
+
+    safe_sph = torch.clamp(sph_idx, max=scene.sph_center.shape[0] - 1)
+    n_sph = (position - scene.sph_center[safe_sph]) / torch.clamp(
+        scene.sph_radius[safe_sph], min=1e-12)[:, None]
+    safe_tri = torch.clamp(tri_idx, 0, scene.tri_v0.shape[0] - 1).long()
+    n_tri = linalg.normalize(linalg.cross(scene.tri_e1[safe_tri],
+                                          scene.tri_e2[safe_tri]))
+    n_geo = torch.where(hit_tri[:, None], n_tri, n_sph)
+    front = linalg.dot(direction, n_geo) < 0.0
+    normal = torch.where(front[:, None], 1.0, -1.0) * n_geo
+    mat_id = torch.where(hit_tri, scene.tri_mat[safe_tri],
+                         scene.sph_mat[safe_sph])
+    mat_id = torch.where(valid, mat_id, 0).to(torch.int32)
+    return Hit(
+        t=t, position=position, normal=normal, mat_id=mat_id, front=front,
+        valid=valid, tri=hit_tri & valid,
+        prim=torch.where(hit_tri & valid, tri_idx, -1).to(torch.int32),
+    )
+
+
 def occluded_batch(scene: Scene, origin, direction, t_max,
                    traversal: str, active=None, time=None):
     """Any-hit occlusion for a (R, 3) ray batch: True where any primitive
     lies strictly inside (T_MIN, t_max). Lanes the sphere pass already
     occluded, and inactive lanes, get a zero cap so the cluster sweep
     skips them (the result ORs the sphere answer back in). ``time``
-    (optional (R,)): per-ray shutter time for motion-blurred instances."""
+    (optional (R,)): per-ray shutter time for motion-blurred instances.
+    The "bvh" route answers with its closest hit, ``t < t_max``, as the
+    JAX package does."""
+    if traversal == "bvh":
+        hit = intersect_scene(scene, origin, direction)
+        occ = hit.valid & (hit.t < t_max)
+        return occ & active if active is not None else occ
     query = _cluster_query(scene, "occluded", traversal)
     ts = _sphere_pass(scene, origin, direction)
     occ_sph = torch.min(ts, dim=1).values < t_max
@@ -780,7 +1156,12 @@ def intersect_batch(scene: Scene, origin, direction, traversal: str,
     t culls the cluster sweep); ``active`` (optional (R,) bool) gives dead
     lanes ``t_init = 0``, and their Hit fields are garbage the callers
     mask. ``time`` (optional (R,)): per-ray shutter time for
-    motion-blurred instances."""
+    motion-blurred instances. The "bvh" route (``intersect_scene``)
+    ignores ``active``, ``t_max`` and ``time``, as the JAX package's
+    does. ``prim`` resolves a cluster hit's slot through ``slot_to_tri``
+    where the scene has it (-1 elsewhere, with no gather)."""
+    if traversal == "bvh":
+        return intersect_scene(scene, origin, direction)
     query = _cluster_query(scene, "trace", traversal)
     ts = _sphere_pass(scene, origin, direction)               # (R, S)
     sph_t, sph_idx = torch.min(ts, dim=1)
@@ -808,8 +1189,14 @@ def intersect_batch(scene: Scene, origin, direction, traversal: str,
 
     mat_id = torch.where(hit_tri, mat_tri, scene.sph_mat[safe_sph])
     mat_id = torch.where(valid, mat_id, 0).to(torch.int32)
+    tri = hit_tri & valid
+    if scene.slot_to_tri is not None:
+        safe_slot = torch.clamp(slot, 0, scene.slot_to_tri.shape[0] - 1)
+        prim = torch.where(tri, scene.slot_to_tri[safe_slot.long()], -1)
+    else:
+        prim = torch.full_like(slot, -1)
     return Hit(
         t=t, position=position, normal=normal, mat_id=mat_id, front=front,
-        valid=valid, tri=hit_tri & valid,
-        slot=torch.where(hit_tri & valid, slot, -1).to(torch.int32),
+        valid=valid, tri=tri, prim=prim.to(torch.int32),
+        slot=torch.where(tri, slot, -1).to(torch.int32),
     )

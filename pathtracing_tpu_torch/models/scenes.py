@@ -4,7 +4,9 @@ geometry, materials, lights and cameras, and its registry (``SCENES``,
 the Cornell family (cornell_sphere, cornell_bsdf, cornell_mesh), the
 reference sphere, the Veach MIS strips, the checker hero shot, the glass,
 frosted, prism, environment-map, principled and spotlight showcases, the
-instancing field and the many-light hall.
+instancing field, the many-light hall and the surface-attribute scenes
+(textured_demo, bump_demo, screenlight_demo, with their procedural
+textures ``grid_texture`` and ``ripple_normal_map``).
 
 Cornell geometry: axis-aligned box spanning [-1, 1]³, open toward +z,
 camera on the +z axis, an emissive quad centered on the ceiling.
@@ -16,6 +18,7 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 
+from pathtracing_tpu_torch.models.meshes import smooth_vertex_normals
 from pathtracing_tpu_torch.models.scene import Scene, SceneBuilder
 from pathtracing_tpu_torch.ops import envmap
 from pathtracing_tpu_torch.utils.config import CameraConfig
@@ -119,6 +122,22 @@ def cornell_mesh_builder(subdivisions: int) -> SceneBuilder:
     verts, faces = icosphere(subdivisions, radius=0.5)
     verts = verts + np.array([0.0, -0.5, 0.0])
     b.add_mesh(verts, faces, body)
+    return b
+
+
+def textured_cornell_mesh_builder(subdivisions: int,
+                                  builder=SceneBuilder) -> SceneBuilder:
+    """The unbuilt cornell_mesh scene with a textured, smooth-shaded body:
+    the same triangles, added with spherical per-vertex uvs (as
+    textured_demo's ball) and area-weighted vertex normals, under a
+    grid-textured Lambertian. ``builder`` is the builder class (the JAX
+    package's ``SceneBuilder`` builds the same scene)."""
+    b = builder()
+    _cornell_walls(b)
+    body = b.lambertian((0.6, 0.55, 0.45), texture=grid_texture())
+    verts, faces = icosphere(subdivisions, radius=0.5)
+    b.add_mesh(verts + np.array([0.0, -0.5, 0.0]), faces, body,
+               uvs=sphere_uvs(verts), smooth=True)
     return b
 
 
@@ -427,6 +446,133 @@ def spotlight_demo(device=None) -> Tuple[Scene, CameraConfig]:
     return b.build(device), cam
 
 
+def grid_texture(res: int = 256, cells: int = 8,
+                 line: float = 0.06) -> np.ndarray:
+    """Procedural uv-grid test texture (res, res, 3): warm cells under dark
+    grid lines, the hue varying with u so orientation errors show. Linear
+    color, no asset file."""
+    t = (np.arange(res, dtype=np.float32) + 0.5) / res
+    u, v = np.meshgrid(t, t[::-1])   # row 0 = top = v near 1
+    fu = u * cells - np.floor(u * cells)
+    fv = v * cells - np.floor(v * cells)
+    on_line = (np.minimum(fu, 1 - fu) < line / 2) | (
+        np.minimum(fv, 1 - fv) < line / 2)
+    img = np.empty((res, res, 3), np.float32)
+    img[..., 0] = 0.25 + 0.65 * u
+    img[..., 1] = 0.55 - 0.25 * u * v
+    img[..., 2] = 0.25 + 0.65 * v
+    img[on_line] = (0.04, 0.04, 0.05)
+    return img
+
+
+def textured_demo(device=None) -> Tuple[Scene, CameraConfig]:
+    """Surface attributes: a uv-grid textured floor and back wall (quad
+    uvs), a smooth-shaded textured icosphere (area-weighted vertex normals
+    and spherical per-vertex uvs) and a flat-shaded control icosphere,
+    under one area light."""
+    b = SceneBuilder()
+    tex = b.add_texture(grid_texture())
+    floor = b.lambertian((1.0, 1.0, 1.0), texture=tex)
+    wall = b.lambertian((0.8, 0.85, 1.0), texture=tex)
+    plain = b.lambertian((0.55, 0.5, 0.45))
+    b.add_quad((-2.0, 0.0, -2.0), (4.0, 0.0, 0.0), (0.0, 0.0, 4.0),
+               floor, uv=True)
+    b.add_quad((-2.0, 0.0, -2.0), (4.0, 0.0, 0.0), (0.0, 3.0, 0.0),
+               wall, uv=True)
+    verts, faces = icosphere(2, radius=0.55)
+    b.add_mesh(verts + np.array([-0.75, 0.56, 0.2]), faces,
+               b.lambertian((1.0, 1.0, 1.0), texture=tex),
+               uvs=sphere_uvs(verts),
+               normals=smooth_vertex_normals(verts, faces))
+    b.add_mesh(verts + np.array([0.75, 0.56, 0.2]), faces, plain)
+    light = b.emissive((14.0, 13.5, 12.5))
+    b.add_quad((-0.6, 2.95, -0.7), (1.2, 0.0, 0.0), (0.0, 0.0, 1.2),
+               light)
+    cam = CameraConfig(position=(0.0, 1.25, 3.1),
+                       look_at=(0.0, 0.7, 0.0), vfov_degrees=42.0)
+    return b.build(device), cam
+
+
+def sphere_uvs(verts: np.ndarray) -> np.ndarray:
+    """Spherical per-vertex uvs (V, 2) of a mesh around the origin, the
+    seam at -z: u from the azimuth atan2(x, z), v from the latitude."""
+    d = verts / np.linalg.norm(verts, axis=1, keepdims=True)
+    return np.stack([
+        0.5 + np.arctan2(d[:, 0], d[:, 2]) / (2 * np.pi),
+        0.5 + np.arcsin(np.clip(d[:, 1], -1, 1)) / np.pi,
+    ], axis=1)
+
+
+def ripple_normal_map(res: int = 256, rings: float = 6.0,
+                      strength: float = 0.75) -> np.ndarray:
+    """Procedural tangent-space normal map (res, res, 3): concentric
+    ripples around the uv center, encoded 0.5 + 0.5·(t, b, n). Linear
+    data, no asset file."""
+    t = (np.arange(res, dtype=np.float32) + 0.5) / res
+    u, v = np.meshgrid(t, t[::-1])   # row 0 = top = v near 1
+    du = u - 0.5
+    dv = v - 0.5
+    rr = np.sqrt(du * du + dv * dv) + 1e-6
+    slope = strength * np.sin(2 * np.pi * rings * rr)
+    nx = -slope * du / rr
+    ny = -slope * dv / rr
+    nz = np.ones_like(nx)
+    inv = 1.0 / np.sqrt(nx * nx + ny * ny + nz * nz)
+    img = np.stack([nx * inv, ny * inv, nz * inv], axis=-1)
+    return (0.5 + 0.5 * img).astype(np.float32)
+
+
+def bump_demo(device=None) -> Tuple[Scene, CameraConfig]:
+    """Normal mapping: a rippled floor (tangent-space map on quad uvs), a
+    normal-mapped GGX panel leaning on the wall and a normal-mapped sphere
+    (its lat-long frame), under one area light off to the side."""
+    b = SceneBuilder()
+    nmap = b.add_texture(ripple_normal_map(), srgb=False)
+    floor = b.lambertian((0.65, 0.62, 0.58), normal_map=nmap)
+    panel = b.ggx((0.9, 0.75, 0.4), roughness=0.18, normal_map=nmap)
+    ball = b.lambertian((0.4, 0.5, 0.7), normal_map=nmap)
+    plain = b.lambertian((0.55, 0.55, 0.58))
+    b.add_quad((-2.0, 0.0, -2.0), (4.0, 0.0, 0.0), (0.0, 0.0, 4.0),
+               floor, uv=True)
+    b.add_quad((-2.0, 0.0, -2.0), (4.0, 0.0, 0.0), (0.0, 3.0, 0.0),
+               plain, uv=True)
+    b.add_quad((-1.5, 0.05, -1.6), (1.6, 0.0, 0.35),
+               (0.25, 1.6, -0.3), panel, uv=True)
+    b.add_sphere((0.85, 0.55, 0.1), 0.55, ball)
+    light = b.emissive((16.0, 15.0, 13.0))
+    b.add_quad((0.6, 2.9, -0.8), (1.1, 0.0, 0.0), (0.0, 0.0, 1.1),
+               light)
+    cam = CameraConfig(position=(0.0, 1.35, 3.2),
+                       look_at=(0.0, 0.65, 0.0), vfov_degrees=42.0)
+    return b.build(device), cam
+
+
+def screenlight_demo(device=None) -> Tuple[Scene, CameraConfig]:
+    """Textured emission: a color-bar "TV screen" panel is the only light;
+    its texels tint the directly seen screen and the NEE light on the
+    glossy floor (``ops.lights.sample_solid_angle(with_uv=True)``)."""
+    b = SceneBuilder()
+    card = np.zeros((8, 8, 3), np.float32)
+    bars = [(1, 1, 1), (1, 1, 0), (0, 1, 1), (0, 1, 0),
+            (1, 0, 1), (1, 0, 0), (0, 0, 1), (0.05, 0.05, 0.05)]
+    for i, c in enumerate(bars):
+        card[2:, i] = c
+    card[:2] = 0.25
+    tex = b.add_texture(card)
+    floor = b.ggx((0.7, 0.7, 0.72), roughness=0.12)
+    b.add_quad((-5.0, 0.0, -3.0), (10.0, 0.0, 0.0), (0.0, 0.0, 8.0),
+               floor)
+    wall = b.lambertian((0.3, 0.3, 0.32))
+    b.add_quad((-5.0, 0.0, -3.0), (10.0, 0.0, 0.0), (0.0, 4.0, 0.0),
+               wall)
+    screen = b.emissive((10.0, 10.0, 10.0), texture=tex)
+    b.add_quad((-1.6, 0.35, -2.2), (3.2, 0.0, 0.0), (0.0, 1.8, 0.0),
+               screen, uv=True)
+    cam = CameraConfig(position=(0.0, 1.3, 4.2),
+                       look_at=(0.0, 0.8, 0.0), vfov_degrees=45.0)
+    return b.build(device), cam
+
+
 SCENES: Dict[str, Callable[..., Tuple[Scene, CameraConfig]]] = {
     "cornell_sphere": cornell_sphere,
     "cornell_bsdf": cornell_bsdf,
@@ -435,21 +581,21 @@ SCENES: Dict[str, Callable[..., Tuple[Scene, CameraConfig]]] = {
     "veach_mis": veach_mis,
     "checker_demo": checker_demo,
     "envmap_demo": envmap_demo,
+    "textured_demo": textured_demo,
+    "bump_demo": bump_demo,
     "prism_demo": prism_demo,
     "glass_demo": glass_demo,
     "frosted_demo": frosted_demo,
     "instanced_demo": instanced_demo,
     "principled_demo": principled_demo,
     "spotlight_demo": spotlight_demo,
+    "screenlight_demo": screenlight_demo,
     "many_lights_demo": many_lights_demo,
 }
 
 # Scenes of the JAX registry that need features the port does not carry
 # yet, with the ROADMAP queue-A item that ports them.
 UNPORTED_SCENES: Dict[str, str] = {
-    "textured_demo": "item 12 (surface attributes)",
-    "bump_demo": "item 12 (surface attributes)",
-    "screenlight_demo": "item 12 (surface attributes)",
     "fog_demo": "item 16 (media)",
     "smoke_demo": "item 16 (media)",
     "fire_demo": "item 16 (media)",

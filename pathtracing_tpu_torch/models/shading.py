@@ -9,17 +9,17 @@ are the JAX package's threefry streams, bit for bit (``ops.rng``), so both
 packages follow the same paths for the same (pixel, sample, bounce)
 counters. Each optional branch runs only for a scene that carries its
 data (``mat_absorb``, ``env``, ``delta``, ``mat_param2``, ``mat_disp``,
-``mat_aniso``) or a config that asks for it (``nee_candidates > 1``), and
-draws no stream otherwise, so every other scene keeps its ops and
-streams.
+``mat_aniso``, surface attributes and textures, a mip pyramid) or a config
+that asks for it (``nee_candidates > 1``), and draws no stream otherwise,
+so every other scene keeps its ops and streams.
 
 Not ported yet: fog, volumes and subsurface media (ROADMAP queue A item
-16), textures and mip cones (item 12) and per-ray depth counters (item
-13).
+16) and per-ray depth counters (item 13).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pathtracing_tpu_torch.models import scene as scene_mod
@@ -27,6 +27,7 @@ from pathtracing_tpu_torch.ops import camera as camera_ops
 from pathtracing_tpu_torch.ops import envmap as envmap_ops
 from pathtracing_tpu_torch.ops import lights as lights_ops
 from pathtracing_tpu_torch.ops import linalg, materials, rng
+from pathtracing_tpu_torch.ops import texture as texture_ops
 
 INV_PI = 0.3183098861837907
 # Distance of the any-hit query toward an environment at infinity.
@@ -78,8 +79,8 @@ def _ris_pick(scene, ul_all, u_pick, o_nee, normal, lobe, m: int):
     rows through ``pgather.gather_rows``), scored by the unshadowed
     luminance(f·Le)·cosθ per solid angle, one resampled ∝ score. Returns
     the winner's (point, normal, emit), its effective density m·p̂/Σw
-    (inf where no candidate scores) and ``ris_ok``; the candidates'
-    tensors go out of scope here."""
+    (inf where no candidate scores), ``ris_ok`` and the winner's uniforms;
+    the candidates' tensors go out of scope here."""
     r = o_nee.shape[0]
     o_rep = torch.repeat_interleave(o_nee, m, dim=0)
     clp, cln, clemit, cpdf = lights_ops.sample_solid_angle(
@@ -106,14 +107,16 @@ def _ris_pick(scene, ul_all, u_pick, o_nee, normal, lobe, m: int):
     pdf_sa = torch.where(ris_ok, m * p_hat / torch.clamp(w_sum, min=1e-20),
                          torch.inf)
     return (_pick_rows(clp, j, m), _pick_rows(cln, j, m),
-            _pick_rows(clemit, j, m), pdf_sa, ris_ok)
+            _pick_rows(clemit, j, m), pdf_sa, ris_ok,
+            _pick_rows(ul_all.reshape(r * m, 3), j, m))
 
 
 def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
                  active, rr_start_depth, background: str, traversal: str,
                  nee: bool = False, prev_pdf=None, prev_nee=None,
                  ld_nee=None, ld_scatter=None, nee_candidates: int = 1,
-                 return_shadow_count: bool = False, time=None, medium=None):
+                 return_shadow_count: bool = False, time=None, medium=None,
+                 cone=None, cone_spread=None):
     """One bounce for a whole (R,) ray batch (``depth`` an int: the
     megakernel's bounce index). ``keys`` are the per-path keys
     (``camera_sample``); ``ld_nee`` ((R, 3)) / ``ld_scatter`` ((R, 2))
@@ -130,8 +133,20 @@ def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
     RIS over M candidates (``3M + 1`` uniforms of the NEE stream), still
     one shadow ray per vertex.
 
+    Scenes with surface attributes or textures resolve the shading normal
+    and uvs at every hit (``scene.surface_attributes``): the texel scales
+    the albedo, and the emission of a textured emitter; a metallic-
+    roughness map scales roughness (G) and metallic (B); the shading
+    normal replaces the geometric one in every later cosine, frame and
+    pdf. NEE toward textured emitters takes the sampled point's texel
+    from the same draws (``sample_solid_angle(with_uv=True)``), and both
+    MIS arms keep the base emission. ``cone`` ((R,), scenes with a mip
+    pyramid) is each path's distance from the camera: with the pixel
+    spread ``cone_spread`` (``cone_spread_of``) it gives the texture LOD.
+
     Returns (radiance, throughput, o, d, active, prev_pdf, prev_nee),
-    then ``medium`` for scenes with ``mat_absorb``, then with
+    then ``medium`` for scenes with ``mat_absorb``, then ``cone`` for
+    scenes with a mip pyramid, then with
     ``return_shadow_count`` the number of shadow rays traced (area-light,
     environment and delta waves; an int64 0-d tensor)."""
     if not isinstance(depth, int):
@@ -177,6 +192,9 @@ def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
     mtype, alb, par, emit = materials.gather(scene.material_table, hit.mat_id)
     alb = materials.effective_albedo(mtype, alb, par, emit, hit.position)
     emit = materials.effective_emission(mtype, emit)
+    # The base emission: the MIS pdfs of both arms keep it, while a
+    # texture scales the accumulated radiance.
+    emit_pdf = emit
     # Optional columns, gathered only by scenes that carry them.
     metal_col = cc_col = aniso_col = None
     if scene.mat_aniso is not None:
@@ -185,6 +203,44 @@ def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
         metal_col = _column(scene.mat_metallic, hit.mat_id)
         if scene.mat_clearcoat is not None:
             cc_col = _column(scene.mat_clearcoat, hit.mat_id)
+    use_mips = scene_mod.uses_mips(scene) and cone is not None
+    if scene.attr_shn is not None or scene.textures is not None:
+        lod_base = None
+        if use_mips:
+            # Ray-cone LOD: spread × distance from the camera, stretched
+            # by the grazing angle (clamped).
+            cos_g = torch.abs(linalg.dot(d, hit.normal))
+            dist_c = cone + torch.where(hit.valid, hit.t, 0.0)
+            width_c = dist_c * cone_spread / torch.clamp(cos_g, min=0.1)
+            s_normal, uv, dens = scene_mod.surface_attributes(
+                scene, hit, cone_width=width_c)
+            lod_base = torch.log2(torch.clamp(width_c * dens, min=1e-20))
+        else:
+            s_normal, uv = scene_mod.surface_attributes(scene, hit)
+
+        def lookup(col):
+            tid = _column(col, hit.mat_id)
+            if use_mips:
+                return tid, texture_ops.sample_trilinear(
+                    scene.textures, tid, uv, lod_base)
+            return tid, texture_ops.sample_bilinear(scene.textures, tid, uv)
+
+        if scene.mat_tex is not None:
+            tex_id, tex_rgb = lookup(scene.mat_tex)
+            textured = (tex_id >= 0) & hit.valid
+            alb = torch.where(textured[:, None], alb * tex_rgb, alb)
+            emit = torch.where(
+                (textured & (mtype == materials.TYPE_EMISSIVE))[:, None],
+                emit * tex_rgb, emit)
+        if scene.mat_mrtex is not None:
+            mr_id, mr = lookup(scene.mat_mrtex)
+            mr_on = (mr_id >= 0) & hit.valid
+            par = torch.where(mr_on, par * mr[:, 1], par)
+            if metal_col is not None:
+                metal_col = torch.where(mr_on, metal_col * mr[:, 2],
+                                        metal_col)
+        if scene.attr_shn is not None or scene.mat_ntex is not None:
+            hit = hit._replace(normal=s_normal)
     live = active & hit.valid
 
     nee_on = nee and scene.lights is not None
@@ -194,7 +250,7 @@ def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
         # direct light the previous vertex already sampled.
         total_power = scene.lights.total_power
         cos_l = torch.abs(linalg.dot(d, hit.normal))
-        pdf_l = (hit.t * hit.t * linalg.luminance(emit)
+        pdf_l = (hit.t * hit.t * linalg.luminance(emit_pdf)
                  / (cos_l * total_power + 1e-20))
         w = prev_pdf ** 2 / (prev_pdf ** 2 + pdf_l ** 2 + 1e-30)
         is_light = hit.valid & (torch.amax(emit, dim=-1) > 0.0)
@@ -243,16 +299,31 @@ def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
             if ld_nee is not None and first:
                 ul_all = torch.cat([ld_nee[:, None, :], ul_all[:, 1:]],
                                    dim=1)
-            lp, ln, lemit, pdf_sa, ris_ok = _ris_pick(
+            lp, ln, lemit, pdf_sa, ris_ok, ul = _ris_pick(
                 scene, ul_all, uu[:, 3 * m], o_nee, hit.normal, lobe, m)
+        elif ld_nee is not None and first:
+            ul = ld_nee
         else:
-            if ld_nee is not None and first:
-                ul = ld_nee
-            else:
-                ul = _uniforms(kd, rng.STREAM_NEE, 3)
-            lp, ln, lemit, pdf_sa = lights_ops.sample_solid_angle(
-                scene.lights, ul, o_nee
-            )
+            ul = _uniforms(kd, rng.STREAM_NEE, 3)
+        if scene.lights.uv0 is not None:
+            # Textured emitters: the winner (or the one sample) again with
+            # its uv and atlas id, from the same draws; the texel scales
+            # the contribution, the pdfs keep the base emission. RIS keeps
+            # its effective density.
+            lp, ln, lemit, pdf_one, uv_l, tex_l = (
+                lights_ops.sample_solid_angle(scene.lights, ul, o_nee,
+                                              with_uv=True))
+            if m == 1:
+                pdf_sa = pdf_one
+            ltex_rgb = texture_ops.sample_bilinear(scene.textures, tex_l,
+                                                   uv_l)
+            lemit_mod = torch.where((tex_l >= 0)[:, None], lemit * ltex_rgb,
+                                    lemit)
+        else:
+            if m == 1:
+                lp, ln, lemit, pdf_sa = lights_ops.sample_solid_angle(
+                    scene.lights, ul, o_nee)
+            lemit_mod = lemit
         wi_vec = lp - o_nee
         dist2 = linalg.dot(wi_vec, wi_vec)
         dist = torch.sqrt(torch.clamp(dist2, min=1e-12))
@@ -278,7 +349,7 @@ def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
                                                    + 1e-20)
         w = pdf_l ** 2 / (pdf_l ** 2 + pdf_b ** 2 + 1e-30)
         scale = cos_s / torch.clamp(pdf_sa, min=1e-20) * w
-        contrib = throughput * f_lobe * lemit * scale[:, None]
+        contrib = throughput * f_lobe * lemit_mod * scale[:, None]
         radiance = radiance + torch.where(vis[:, None], contrib, 0.0)
 
     if nee and scene.env is not None:
@@ -361,13 +432,40 @@ def bounce_batch(scene, o, d, keys, depth: int, radiance, throughput,
             _column(scene.mat_absorb, hit.mat_id),
             torch.where((transmitted & ~hit.front)[:, None], 0.0, medium))
         out = out + (medium,)
+    if use_mips:
+        # The cone grows by the segment travelled; escaped and dead lanes
+        # keep their value (never read again).
+        out = out + (cone + torch.where(hit.valid, hit.t, 0.0),)
     return out + (n_shadow,) if return_shadow_count else out
+
+
+def cone_spread_of(camera, config):
+    """Angular spread of a pixel's primary ray cone (the texture LOD's
+    footprint): the vertical field of view over the image rows, as the
+    float32 scalar the JAX package computes. A motion pair uses its
+    opening pose."""
+    cam = camera[0] if isinstance(camera, tuple) else camera
+    return float(np.float32(2.0) * np.float32(cam.half_fov)
+                 / np.float32(config.height))
+
+
+def shutter_time(config, seed, pixel_index, sample_index, keys):
+    """Per-path shutter time in [0, 1): the one draw that camera motion
+    and object motion share (``STREAM_TIME``, LD or plain), so rigid
+    camera and object motion stay consistent. ``keys`` are the per-path
+    keys of ``camera_sample``."""
+    if config.sampler == "ld":
+        return rng.ld_scalar(seed, pixel_index, sample_index,
+                             rng.STREAM_TIME)
+    return rng.uniform(rng.stream_key(keys, 0, rng.STREAM_TIME))
 
 
 def camera_sample(camera, config, seed, pixel_index, sample_index):
     """Primary rays for a batch of (pixel, sample) pairs. Returns (keys,
     origin, direction); the keys are the per-path base keys every bounce
-    stream derives from."""
+    stream derives from. ``camera`` is one camera or an ``(open, close)``
+    motion pair, traced through the pose at each path's
+    ``shutter_time``."""
     h, w = config.height, config.width
     x = (pixel_index % w).to(torch.float32)
     # Film t runs bottom→top; image row 0 is the top.
@@ -381,6 +479,10 @@ def camera_sample(camera, config, seed, pixel_index, sample_index):
         ju = rng.uniform(rng.stream_key(k, 0, rng.STREAM_PIXEL_JITTER), 2)
         lu = rng.uniform(rng.stream_key(k, 0, rng.STREAM_LENS), 2)
         j0, j1, l0, l1 = ju[:, 0], ju[:, 1], lu[:, 0], lu[:, 1]
+    if isinstance(camera, tuple):
+        camera = camera_ops.lerp(
+            camera[0], camera[1],
+            shutter_time(config, seed, pixel_index, sample_index, k))
     s = (x + j0) / w
     t = (y + j1) / h
     o, d = camera_ops.generate_ray(camera, s, t, l0, l1)

@@ -1,11 +1,12 @@
-"""Host-side binned-SAH BVH builder — the JAX package's ``ops/bvh``
-builders, copied so the port stands alone.
+"""Binned-SAH BVH (the JAX package's ``ops/bvh``): the host builders,
+copied so the port stands alone, and the threaded traversal of the
+``traversal="bvh"`` route.
 
-``SceneBuilder.build`` uses it at leaf size 4 for the stored triangle
-order (the light table follows that order, so light picks match the JAX
-package's) and ``ops.clusters.build_clusters`` at leaf size 128 for the
-cluster packing. Nodes are in DFS preorder with skip links; no traversal
-is ported (the port traces through the cluster kernels).
+``SceneBuilder.build`` builds it at leaf size 4: the stored triangle order
+(which the light table follows, so light picks match the JAX package's)
+and the scene's ``FlatBVH``. ``ops.clusters.build_clusters`` builds it at
+leaf size 128 for the cluster packing. Nodes are in DFS preorder with
+skip links, so a walk needs one node index per ray and no stack.
 
 ``build_bvh`` takes the C++ builder (``ops.bvh_native``, built at first
 use) unless ``USE_NATIVE`` is False; it raises if that library cannot be
@@ -16,9 +17,12 @@ NumPy build.
 
 from __future__ import annotations
 
-import numpy as np
+from typing import NamedTuple
 
-from pathtracing_tpu_torch.ops import bvh_native
+import numpy as np
+import torch
+
+from pathtracing_tpu_torch.ops import bvh_native, intersect
 
 LEAF_SIZE = 4
 SAH_BINS = 16
@@ -26,6 +30,18 @@ TRAVERSAL_COST = 1.0
 INTERSECT_COST = 1.5
 # Build with the C++ builder (False: the NumPy reference).
 USE_NATIVE = True
+
+
+class FlatBVH(NamedTuple):
+    """The threaded BVH of a scene's triangles.
+
+    node_min/node_max: (M, 3) f32 boxes; node_meta: (M, 3) i32
+    [skip_link, prim_start, prim_count], prim_count 0 for an interior
+    node; a skip link of M ends the walk."""
+
+    node_min: torch.Tensor
+    node_max: torch.Tensor
+    node_meta: torch.Tensor
 
 
 def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
@@ -156,3 +172,51 @@ def _build_bvh_numpy(v0, e1, e2, leaf_size=LEAF_SIZE):
         node_meta[:node_count].copy(),
     )
     return flat, perm
+
+
+def traverse(bvh: FlatBVH, tri_v0, tri_e1, tri_e2, origin, direction,
+             t_max):
+    """Closest hit of a (R, 3) ray batch over the threaded BVH, in plain
+    torch: (t (R,), prim (R,) i32), t = ``t_max`` and prim = -1 where no
+    triangle is nearer.
+
+    Each iteration takes one walk step for every unfinished ray (node
+    index < M): the slab test against the ray's best t, the leaf's
+    triangles tested in index order with the strict ``t < best`` rule,
+    then the hit link (i + 1) into an interior node whose box was hit or
+    the skip link otherwise. That is the JAX package's per-ray walk, so
+    ``(t, prim)`` equal the vmapped JAX walk's. The loop runs until the
+    ray with the longest walk finishes; finished rays leave the working
+    set."""
+    n_nodes = bvh.node_meta.shape[0]
+    last = tri_v0.shape[0] - 1
+    tiny = torch.where(direction >= 0, 1e-12, -1e-12)
+    inv_d = 1.0 / torch.where(torch.abs(direction) < 1e-12, tiny, direction)
+    r = origin.shape[0]
+    dev = origin.device
+    best_t = t_max.clone()
+    best_prim = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    idx = torch.zeros(r, dtype=torch.int64, device=dev)
+    rays = torch.arange(r, device=dev)
+    o, d, iv = origin, direction, inv_d
+    while rays.numel():
+        bt, bp = best_t[rays], best_prim[rays]
+        meta = bvh.node_meta[idx]
+        skip, start, count = meta[:, 0], meta[:, 1], meta[:, 2]
+        box_hit, _ = intersect.ray_aabb(o, iv, bvh.node_min[idx],
+                                        bvh.node_max[idx], bt)
+        is_leaf = count > 0
+        test = is_leaf & box_hit
+        for j in range(LEAF_SIZE):
+            pid = torch.clamp(start + j, max=last).long()
+            t = intersect.ray_triangle(o, d, tri_v0[pid], tri_e1[pid],
+                                       tri_e2[pid], t_max=bt)
+            ok = (j < count) & test & (t < bt)
+            bt = torch.where(ok, t, bt)
+            bp = torch.where(ok, pid.to(torch.int32), bp)
+        best_t[rays], best_prim[rays] = bt, bp
+        idx = torch.where(box_hit & ~is_leaf, idx + 1, skip.long())
+        going = idx < n_nodes
+        rays, idx = rays[going], idx[going]
+        o, d, iv = o[going], d[going], iv[going]
+    return best_t, best_prim

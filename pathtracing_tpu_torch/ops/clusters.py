@@ -354,6 +354,17 @@ def build_pages(cs: ClusterSet, page_size: int = PAGE_CLUSTERS):
     return flat, pageset, remap
 
 
+def remap_slot_to_tri(slot_to_tri: np.ndarray, remap: np.ndarray,
+                      c_pad: int) -> np.ndarray:
+    """Reindex a (C*128,) slot → triangle map after ``build_pages``
+    renumbered the clusters page-contiguously (``remap``: old cluster id →
+    new); every slot of a padding cluster maps to -1 (it never hits)."""
+    rows = slot_to_tri.reshape(-1, CLUSTER_SIZE)
+    out = np.full((c_pad, CLUSTER_SIZE), -1, np.int32)
+    out[remap] = rows
+    return out.ravel()
+
+
 def build_clusters(
     v0: np.ndarray, e1: np.ndarray, e2: np.ndarray, tri_mat: np.ndarray
 ) -> Tuple[ClusterSet, np.ndarray, np.ndarray]:

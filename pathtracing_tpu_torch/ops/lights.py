@@ -24,7 +24,11 @@ Delta lights (point, spot, directional) are a table of their own,
 so their estimator is pure next-event estimation with MIS weight 1, one
 power-weighted pick per vertex (``sample_delta``).
 
-Not ported yet: textured emitters (ROADMAP queue A item 12).
+Textured emitters: triangle rows of a textured emissive material carry
+their corner uvs in edge form (``uv0``, ``uv_e1``, ``uv_e2``) and the atlas
+id (``tex``; -1 on untextured rows and spheres), present only when some
+emitter is textured. ``sample_solid_angle(with_uv=True)`` returns the
+sampled point's uv and atlas id from the same draws as the point.
 """
 
 from __future__ import annotations
@@ -45,14 +49,17 @@ _GATHER_MIN = 192
 
 # Column layout of ``LightTable.packed`` ((L, 24) f32, built only for
 # gather-mode tables): slices for the vector columns, scalar indices for
-# kind/tex (small ints, exact in f32). The uv columns stay zero and tex
-# stays -1 until textured emitters are ported.
+# kind/tex (small ints, exact in f32). The uv columns are zero and tex is
+# -1 in a table without a textured emitter.
 _P_V0 = slice(0, 3)
 _P_E1 = slice(3, 6)
 _P_E2 = slice(6, 9)
 _P_NORMAL = slice(9, 12)
 _P_EMIT = slice(12, 15)
 _P_KIND = 15
+_P_UV0 = slice(16, 18)
+_P_UVE1 = slice(18, 20)
+_P_UVE2 = slice(20, 22)
 _P_TEX = 22
 _P_WIDTH = 24
 
@@ -69,6 +76,13 @@ class LightTable(NamedTuple):
     cum: torch.Tensor         # (L,)  f32 inclusive cumulative power fraction
     total_area: torch.Tensor  # () f32 — 0 means "no lights" (NEE no-op)
     total_power: torch.Tensor  # () f32 Σ luminance·area
+    # Textured emission (triangle rows; None unless some emitter is
+    # textured): corner uvs in edge form and the atlas id (-1: none). Light
+    # selection stays ∝ the BASE power; the texel scales the contribution.
+    uv0: torch.Tensor = None    # (L, 2) f32
+    uv_e1: torch.Tensor = None  # (L, 2) f32
+    uv_e2: torch.Tensor = None  # (L, 2) f32
+    tex: torch.Tensor = None    # (L,) i32
     # Gather mode (L >= _GATHER_MIN only): all sampler columns packed into
     # one (L, _P_WIDTH) f32 table; None for small tables.
     packed: torch.Tensor = None
@@ -76,9 +90,13 @@ class LightTable(NamedTuple):
 
 def build_light_table(v0, v1, v2, tri_mat, mat_type, mat_emit,
                       emissive_type: int, device, sph_center=None,
-                      sph_radius=None, sph_mat=None) -> LightTable:
+                      sph_radius=None, sph_mat=None, tri_uv=None,
+                      tri_tex=None) -> LightTable:
     """Host-side (numpy) collection of the emissive triangles and spheres,
-    uploaded to ``device``."""
+    uploaded to ``device``. ``tri_uv`` ((T, 3, 2)) are the corner uvs of
+    every triangle and ``tri_tex`` ((T,)) each triangle's emission-texture
+    id (-1: none); the textured columns attach only when some emitter has
+    a texture."""
     v0 = np.asarray(v0, np.float32)
     v1 = np.asarray(v1, np.float32)
     v2 = np.asarray(v2, np.float32)
@@ -90,6 +108,10 @@ def build_light_table(v0, v1, v2, tri_mat, mat_type, mat_emit,
     sel = types[tri_mat] == emissive_type
     lv0, lv1, lv2 = v0[sel], v1[sel], v2[sel]
     lemit = emits[sel]
+    luv = (None if tri_uv is None
+           else np.asarray(tri_uv, np.float32)[sel])
+    ltex = (None if tri_tex is None
+            else np.asarray(tri_tex, np.int32)[sel])
 
     e1 = lv1 - lv0
     e2 = lv2 - lv0
@@ -101,6 +123,10 @@ def build_light_table(v0, v1, v2, tri_mat, mat_type, mat_emit,
         lv0[keep], e1[keep], e2[keep], n[keep], norm[keep], area[keep],
         lemit[keep],
     )
+    if luv is not None:
+        luv = luv[keep]
+    if ltex is not None:
+        ltex = ltex[keep]
     normal = (n / np.maximum(norm[:, None], 1e-20)).astype(np.float32)
     kind = np.zeros(lv0.shape[0], np.int32)
     has_sphere = False
@@ -126,6 +152,10 @@ def build_light_table(v0, v1, v2, tri_mat, mat_type, mat_emit,
                 [area, 4.0 * np.pi * sr[ssel] * sr[ssel]]
             )
             kind = np.concatenate([kind, np.ones(k, np.int32)])
+            if luv is not None:
+                luv = np.concatenate([luv, np.zeros((k, 3, 2), np.float32)])
+            if ltex is not None:
+                ltex = np.concatenate([ltex, np.full(k, -1, np.int32)])
 
     # Selection weight = emitted power (luminance · area), f64 so the
     # all-equal-radiance case reduces to the area CDF bit-exactly.
@@ -146,6 +176,12 @@ def build_light_table(v0, v1, v2, tri_mat, mat_type, mat_emit,
             total_power=dev(np.float32(0.0)),
         )
     cum = np.cumsum(power) / total_power
+    uv_cols = {}
+    if ltex is not None and (ltex >= 0).any():
+        if luv is None:
+            luv = np.zeros((lv0.shape[0], 3, 2), np.float32)
+        uv_cols = {"uv0": luv[:, 0], "uv_e1": luv[:, 1] - luv[:, 0],
+                   "uv_e2": luv[:, 2] - luv[:, 0], "tex": ltex}
     packed = None
     if lv0.shape[0] >= _GATHER_MIN:
         pk = np.zeros((lv0.shape[0], _P_WIDTH), np.float32)
@@ -155,7 +191,13 @@ def build_light_table(v0, v1, v2, tri_mat, mat_type, mat_emit,
         pk[:, _P_NORMAL] = normal
         pk[:, _P_EMIT] = lemit
         pk[:, _P_KIND] = kind
-        pk[:, _P_TEX] = -1.0
+        if uv_cols:
+            pk[:, _P_UV0] = uv_cols["uv0"]
+            pk[:, _P_UVE1] = uv_cols["uv_e1"]
+            pk[:, _P_UVE2] = uv_cols["uv_e2"]
+            pk[:, _P_TEX] = uv_cols["tex"]
+        else:
+            pk[:, _P_TEX] = -1.0
         packed = dev(pk)
     return LightTable(
         v0=dev(lv0), e1=dev(e1), e2=dev(e2), normal=dev(normal),
@@ -165,6 +207,8 @@ def build_light_table(v0, v1, v2, tri_mat, mat_type, mat_emit,
         total_area=dev(np.float32(float(area.sum()))),
         total_power=dev(np.float32(total_power)),
         packed=packed,
+        **{k: dev(v, torch.int32 if k == "tex" else torch.float32)
+           for k, v in uv_cols.items()},
     )
 
 
@@ -181,29 +225,43 @@ def pick(lights: LightTable, u0):
     return torch.clamp(idx, 0, n_lights - 1)
 
 
-def _pick_and_select(lights: LightTable, u0):
+def _pick_and_select(lights: LightTable, u0, with_uv: bool = False):
     """The picked rows' columns: (v0, e1, e2, normal, emit, kind), each
-    (R, 3) f32 and kind (R,) i32 or None. Gather-mode tables fetch ONE
-    packed row per ray through ``pgather.gather_rows``; small tables index
-    each column. Both are exact copies of the same rows."""
+    (R, 3) f32 and kind (R,) i32 or None; with ``with_uv`` also (uv0,
+    uv_e1, uv_e2, tex), (R, 2) f32 and (R,) i32. Gather-mode tables fetch
+    ONE packed row per ray through ``pgather.gather_rows``; small tables
+    index each column. Both are exact copies of the same rows."""
     idx = pick(lights, u0)
     if lights.packed is not None:
         rows = pgather.gather_rows(lights.packed, idx)        # (R, W)
         kind = None
         if lights.kind is not None:
             kind = rows[:, _P_KIND].to(torch.int32)
-        return (rows[:, _P_V0], rows[:, _P_E1], rows[:, _P_E2],
-                rows[:, _P_NORMAL], rows[:, _P_EMIT], kind)
+        out = (rows[:, _P_V0], rows[:, _P_E1], rows[:, _P_E2],
+               rows[:, _P_NORMAL], rows[:, _P_EMIT], kind)
+        if with_uv:
+            out += (rows[:, _P_UV0], rows[:, _P_UVE1], rows[:, _P_UVE2],
+                    rows[:, _P_TEX].to(torch.int32))
+        return out
     kind = None if lights.kind is None else lights.kind[idx]
-    return (lights.v0[idx], lights.e1[idx], lights.e2[idx],
-            lights.normal[idx], lights.emit[idx], kind)
+    out = (lights.v0[idx], lights.e1[idx], lights.e2[idx],
+           lights.normal[idx], lights.emit[idx], kind)
+    if with_uv:
+        out += (lights.uv0[idx], lights.uv_e1[idx], lights.uv_e2[idx],
+                lights.tex[idx])
+    return out
+
+
+def _barycentrics(u):
+    """The sqrt-warped barycentric weights (a along e1, b along e2), each
+    (R, 1), of an area-uniform point in a triangle."""
+    su = torch.sqrt(torch.clamp(u[:, 1:2], min=1e-12))
+    return 1.0 - su, su * u[:, 2:3]
 
 
 def _triangle_point(v0, e1, e2, u):
     """Area-uniform point by sqrt-warped barycentrics."""
-    su = torch.sqrt(torch.clamp(u[:, 1:2], min=1e-12))
-    a = 1.0 - su
-    b = su * u[:, 2:3]
+    a, b = _barycentrics(u)
     return v0 + a * e1 + b * e2
 
 
@@ -234,7 +292,7 @@ def sample(lights: LightTable, u):
             torch.where(is_sph, dir_s, normal), emit)
 
 
-def sample_solid_angle(lights: LightTable, u, origin):
+def sample_solid_angle(lights: LightTable, u, origin, with_uv: bool = False):
     """NEE light sample with its per-solid-angle pdf.
 
     u: (R, 3) uniforms; origin: (R, 3) shading points. Returns
@@ -244,9 +302,15 @@ def sample_solid_angle(lights: LightTable, u, origin):
     outside is sampled uniformly inside the cone it subtends, with
     pdf_sa = 2 · lum · r² / (total_power · (1 − cosθmax)) and
     1 − cosθmax computed as sin²θmax / (1 + cosθmax) so that small
-    far-away lamps do not cancel to zero in f32."""
-    v0, e1, e2, normal, emit, kind = _pick_and_select(lights, u[:, 0])
-    point = _triangle_point(v0, e1, e2, u)
+    far-away lamps do not cancel to zero in f32.
+
+    ``with_uv`` (tables with textured emitters): also the sampled point's
+    uv (R, 2) and the row's atlas id (R,) (-1: untextured), from the same
+    barycentric draws as the point, so the texel sits at the point."""
+    sel = _pick_and_select(lights, u[:, 0], with_uv)
+    v0, e1, e2, normal, emit, kind = sel[:6]
+    a, b = _barycentrics(u)
+    point = v0 + a * e1 + b * e2
     lum = linalg.luminance(emit)
     cone = None
     if kind is not None:
@@ -298,6 +362,9 @@ def sample_solid_angle(lights: LightTable, u, origin):
     pdf_sa = dist2 * lum / (cos_l * lights.total_power + 1e-20)
     if cone is not None:
         pdf_sa = torch.where(cone, pdf_cone, pdf_sa)
+    if with_uv:
+        uv0, uv_e1, uv_e2, tex = sel[6:]
+        return point, normal, emit, pdf_sa, uv0 + a * uv_e1 + b * uv_e2, tex
     return point, normal, emit, pdf_sa
 
 

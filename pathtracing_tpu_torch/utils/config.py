@@ -2,9 +2,10 @@
 ``CameraConfig`` with the same fields and defaults, plus the device rule.
 
 ``resolve_traversal`` picks the hand-written CUDA cluster kernels for a
-scene on the card and their plain torch versions for a scene on the CPU.
-The JAX package's ``bvh`` and ``cluster_interpret`` modes have no
-counterpart here.
+scene on the card and their plain torch versions for a scene on the CPU;
+``"bvh"`` (the threaded-BVH walk in plain torch, the JAX package's CPU
+default) is taken only when asked for. The JAX package's
+``cluster_interpret`` mode has no counterpart here.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Tuple
 
 import torch
 
-TRAVERSALS = ("cluster_cuda", "cluster_torch")
+TRAVERSALS = ("cluster_cuda", "cluster_torch", "bvh")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -36,9 +37,10 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class CameraConfig:
-    """Pinhole camera with optional thin-lens defocus (the JAX package's
-    ``utils.config.CameraConfig``; only the pinhole projection and a
-    static camera are ported so far)."""
+    """Camera settings (the JAX package's ``utils.config.CameraConfig``):
+    pose, field of view, thin-lens defocus, the projection ("pinhole",
+    "ortho", "fisheye" or "equirect", ``ops.camera.PROJECTIONS``) and an
+    optional pose at shutter close (camera motion blur)."""
 
     position: Tuple[float, float, float] = (0.0, 0.0, 1.0)
     look_at: Tuple[float, float, float] = (0.0, 0.0, 0.0)
@@ -49,6 +51,23 @@ class CameraConfig:
     projection: str = "pinhole"
     motion_position: "Tuple[float, float, float] | None" = None
     motion_look_at: "Tuple[float, float, float] | None" = None
+
+    def motion_pair(self) -> "Tuple[CameraConfig, CameraConfig] | None":
+        """The (open, close) config pair, or None for a static camera."""
+        if self.motion_position is None and self.motion_look_at is None:
+            return None
+        close = dataclasses.replace(
+            self,
+            position=(self.motion_position if self.motion_position
+                      is not None else self.position),
+            look_at=(self.motion_look_at if self.motion_look_at
+                     is not None else self.look_at),
+            motion_position=None, motion_look_at=None,
+        )
+        opened = dataclasses.replace(
+            self, motion_position=None, motion_look_at=None
+        )
+        return opened, close
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +85,8 @@ class RenderConfig:
     engine: str = "megakernel"
     background: str = "black"
     wavefront_pool: int = 0
-    traversal: str = "auto"        # "auto" | "cluster_cuda" | "cluster_torch"
+    traversal: str = "auto"        # "auto" | "cluster_cuda" |
+    #                                "cluster_torch" | "bvh"
     nee: bool = True
     nee_candidates: int = 1
     sampler: str = "ld"

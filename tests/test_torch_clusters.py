@@ -280,7 +280,7 @@ def test_routes_agree_on_cpu_tensors(scenes):
     for a, b in zip(ha, hb):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="traversal"):
-        tscene_mod.intersect_batch(t, *args, "bvh")
+        tscene_mod.intersect_batch(t, *args, "cluster_jax")
 
 
 # --- the flat closest hit's walk of the set's cluster tree ----------------

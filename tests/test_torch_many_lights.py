@@ -220,16 +220,6 @@ def test_scene_from_numpy_carries_light_and_material_columns(demo):
     assert float(s.mat_clearcoat[coat, 0]) == np.float32(0.7)
 
 
-def test_scene_from_numpy_refuses_textured_emitters(demo):
-    scene_j, _, _ = demo
-    arrays = jax.tree.map(np.asarray, scene_j)._asdict()
-    li = arrays["lights"]._asdict()
-    li["tex"] = np.zeros(288, np.int32)
-    arrays["lights"] = li
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tscene_mod.scene_from_numpy(arrays, "cpu")
-
-
 # --- the principled lobe ---------------------------------------------------
 
 

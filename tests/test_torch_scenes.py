@@ -1,17 +1,18 @@
 """Port parity: the scene registry and the bench entry point.
 
-Every ``Scene`` field of each of the port's 14 registry scenes equals the
+Every ``Scene`` field of each of the port's 17 registry scenes equals the
 JAX package's, built from the same builder calls: the None/non-None
 pattern of every optional column and table (``mat_absorb``,
 ``mat_param2``, ``mat_disp``, ``mat_aniso``, ``mat_metallic``,
-``mat_clearcoat``, ``env``, ``delta``, ``instances``, ``pages``), and
-every array, bit for bit. Both sides build the BVH order and the cluster
-tables in numpy (the JAX side's native builder is switched off, the
-port's C++ builder gives the numpy bytes). JAX fields the port does not
-carry are None in every one of these scenes, apart from the dropped
-``bvh`` and ``cand_box``. ``PREFERRED_BACKGROUND`` is the JAX map
-restricted to the port's scenes, and ``get_scene`` raises
-``NotImplementedError`` naming the queue-A item for the seven JAX scenes
+``mat_clearcoat``, ``env``, ``delta``, ``instances``, ``pages``, the
+surface attributes, ``textures`` and the ``mat_*tex`` columns), and every
+array, bit for bit, the threaded ``bvh`` included. Both sides build the
+BVH order and the cluster tables in numpy (the JAX side's native builder
+is switched off, the port's C++ builder gives the numpy bytes). JAX fields
+the port does not carry (item 16's media) are None in every one of these
+scenes, apart from the dropped ``cand_box``. ``PREFERRED_BACKGROUND`` is
+the JAX map restricted to the port's scenes, and ``get_scene`` raises
+``NotImplementedError`` naming the queue-A item for the four JAX scenes
 it cannot build yet.
 
 The bench module (``python -m pathtracing_tpu_torch.bench``) exits
@@ -38,12 +39,11 @@ torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORTED = sorted(tscenes.SCENES)
-MISSING = {"textured_demo": "item 12", "bump_demo": "item 12",
-           "screenlight_demo": "item 12", "fog_demo": "item 16",
-           "smoke_demo": "item 16", "fire_demo": "item 16",
-           "sss_demo": "item 16"}
+MISSING = {"fog_demo": "item 16", "smoke_demo": "item 16",
+           "fire_demo": "item 16", "sss_demo": "item 16"}
 # Tables compared field by field; the rest of a Scene is arrays.
-TABLES = ("clusters", "lights", "instances", "pages", "env", "delta")
+TABLES = ("clusters", "lights", "instances", "pages", "env", "delta", "bvh",
+          "textures")
 # JAX-only table fields the port drops by design (TPU-only layout).
 DROPPED = {"cand_box"}
 
@@ -77,7 +77,8 @@ def _assert_arrays_equal(a, b, what):
 
 
 def test_registry_holds_the_fourteen_scenes():
-    assert len(tscenes.SCENES) == 14
+    """Fourteen scenes until the surface-attribute slice added three."""
+    assert len(tscenes.SCENES) == 17
     assert set(tscenes.SCENES) | set(MISSING) == set(jscenes.SCENES)
     assert not set(tscenes.SCENES) & set(MISSING)
 
@@ -115,9 +116,7 @@ def test_scene_fields_equal(built, name):
             _assert_arrays_equal(a, b, (name, f))
             continue
         ta, tb = _fields_of(a), _fields_of(b)
-        for g in set(ta) - set(tb):
-            # Columns of unported features (textured emitters) are None.
-            assert g in DROPPED or ta[g] is None, (name, f, g)
+        assert set(ta) - set(tb) <= DROPPED, (name, f)
         for g, y in tb.items():
             if g not in ta:
                 continue        # port-only derived columns (placement boxes)
@@ -125,7 +124,7 @@ def test_scene_fields_equal(built, name):
             assert (x is None) == (y is None), (name, f, g)
             if x is not None:
                 _assert_arrays_equal(x, y, (name, f, g))
-    for f in set(jf) - set(scene_t._fields) - {"bvh"}:
+    for f in set(jf) - set(scene_t._fields):
         assert jf[f] is None, (name, f)
 
 
