@@ -74,6 +74,16 @@ Phases, in order; any failure exits non-zero:
                  (``scenes.textured_cornell_mesh_builder``), and its slot
                  map: the camera wave's ``Hit.prim`` through row 6 and
                  ``slot_to_tri`` against the "bvh" route's prim.
+               * the wavefront and media waves: the flat pair on the
+                 flagship's wavefront pool at its second iteration (2^20
+                 slots of mixed depth) and its shadow wave, and on the
+                 second bounce of fog_demo and smoke_demo (rays from fog
+                 and grid collision points) with its shadow wave.
+               * binning: rows 7-8 on the unpaged cornell_mesh(8)'s camera,
+                 bounce and shadow waves as they come and sorted into
+                 (cell, octant) bins: kernel ms both ways, the binning's
+                 own ms, and the binned results mapped back equal to the
+                 unbinned ones (the tie contract for the closest hit).
                Each traversal kernel's bound counts the cluster
                evaluations its wave needs in any visiting order
                (``needed_evals``, a slab-test pass over the whole wave
@@ -95,8 +105,9 @@ Phases, in order; any failure exits non-zero:
                the instanced scene the instanced pair and no flat kernel,
                the many-light scene the gather, cornell_mesh(8) the paged
                pair (closest hit and any hit) and no flat kernel, the
-               unpaged one both tree walks and neither the flat nor the
-               paged kernels, the nine new scenes the flat pair and no
+               unpaged one (its rays binned, as ``RenderConfig.ray_sort``
+               asks) both tree walks and neither the flat nor the paged
+               kernels, the nine new scenes the flat pair and no
                other kernel, the RIS render the flat pair and the gather
                and no other. Then textured_demo, bump_demo,
                screenlight_demo, textured_demo with mips (``add_mips``)
@@ -104,7 +115,15 @@ Phases, in order; any failure exits non-zero:
                with the device time of ``surface_attributes`` and the
                texture lookups; the flagship through the ortho, fisheye
                and equirect projections and a moving camera (one timed
-               step each); ``render_reference`` at 1920x1080 against the
+               step each); the flagship through the wavefront engine
+               (pool 2^20; its segments equal the megakernel's, its image
+               the megakernel's within ``WAVEFRONT_IMAGE_TOL``, two runs
+               of one step equal bit for bit); fog_demo, smoke_demo,
+               fire_demo and sss_demo through the megakernel (the grid
+               scenes' profiles with the walks' device time) and
+               smoke_demo through the wavefront engine (one timed step,
+               against the megakernel's image of the same samples);
+               ``render_reference`` at 1920x1080 against the
                CPU; and the "bvh" route (plain torch) on cornell_bsdf and
                textured_demo at 128x128, depth 4: its hits on the camera
                and first bounce waves against the cluster route's, its
@@ -116,9 +135,14 @@ Phases, in order; any failure exits non-zero:
                camera, the textured cornell_mesh(3) paged by 16, an
                instanced field over a textured ground (rows 4-5) and
                cornell_mesh(3) paged by 16; 32x32 at depth 4 for the
-               unpaged cornell_mesh(8).
+               unpaged cornell_mesh(8); 64x64 for the media scenes; and
+               through the wavefront pool, an instanced field with object
+               motion (rows 4-5), many_lights_demo (row 3),
+               cornell_mesh(3) paged by 16 (row 6) and sss_demo.
   6. bench   — ``python -m pathtracing_tpu_torch.bench`` in quick mode as
-               a subprocess; its JSON line is required and printed.
+               a subprocess, with the megakernel and with
+               ``BENCH_ENGINE=wavefront``; both JSON lines are required and
+               printed.
 
 It prints one JSON line per kernel result, a ``{"kernels": [...]}`` line
 with all ten kernels, the card's name and power limit, and as its last
@@ -138,6 +162,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+START = time.perf_counter()
 
 DEVICE = "cuda"
 WIDTH, HEIGHT, DEPTH = 1920, 1080, 8
@@ -214,10 +239,24 @@ REFERENCE_TOL = 1e-4
 # 0.0295 at 24x24, 3 spp, seed 0); the flagship seen through the equirect
 # camera is mostly the black outside of the box (the port's CPU render at
 # 64x36, 2 spp: mean 0.0241).
-MIN_MEAN = {"spotlight_demo": 0.01, "flagship equirect": 0.01}
-# Profiler ranges put around the attribute resolve and the texture lookups
-# for a profiled step (``attribute_ranges``).
-RANGE_PREFIX = "attrs:"
+MIN_MEAN = {"spotlight_demo": 0.01, "flagship equirect": 0.01,
+            "fire_demo": 0.005}
+# fire_demo is lit by its emissive plume alone: the port's CPU render at
+# 96x54, 4 spp, seed 0 has mean 0.0239, and this script's 1080p render
+# 0.0221 on "NVIDIA H100 80GB HBM3, 700.00 W"; hence (0.005, 5).
+# The media scenes (rendered at full size through the megakernel; smoke
+# also through the wavefront engine), the wavefront pool, and the largest
+# per-pixel difference allowed between a wavefront image and the
+# megakernel's of the same samples: both engines compute each path's
+# estimate with the same operations (equal on the CPU, bit for bit), so
+# only the order of the image sums could part them.
+MEDIA_SCENES = ("fog_demo", "smoke_demo", "fire_demo", "sss_demo")
+VOLUME_SCENES = ("smoke_demo", "fire_demo")
+WAVEFRONT_POOL = 1 << 20
+WAVEFRONT_IMAGE_TOL = 1e-5
+# Profiler ranges put around the attribute resolve and the texture lookups,
+# or around the voxel-grid walks, for a profiled step (``profiler_ranges``).
+RANGE_PREFIX = "ranges:"
 # The design of the big-scene kernels on the shared walker
 # (csrc/cluster_walk.cuh), and the plain versions they are held to bit for
 # bit, named in the kernels line.
@@ -431,10 +470,11 @@ def make_soup(n_tris=160_000, n_rays=(1 << 18) + 13, seed=0):
     }
 
 
-def make_motion_demo(seed=11):
-    """instanced_demo's field with a second, shutter-close transform per
-    instance (a seeded turn about the vertical axis and a drift of up to
-    0.4 units), given to ``add_instances(motion_transforms=...)``."""
+def make_motion_demo(seed=11, grid=12, subdivisions=3):
+    """instanced_demo's field (``grid``² icospheres of ``subdivisions``)
+    with a second, shutter-close transform per instance (a seeded turn
+    about the vertical axis and a drift of up to 0.4 units), given to
+    ``add_instances(motion_transforms=...)``."""
     import numpy as np
 
     from pathtracing_tpu_torch.models import scenes
@@ -449,8 +489,8 @@ def make_motion_demo(seed=11):
     mats = [b.lambertian((0.70, 0.30, 0.25)),
             b.metal((0.85, 0.85, 0.9), 0.08),
             b.ggx((0.9, 0.7, 0.35), roughness=0.25)]
-    verts, faces = scenes.icosphere(3, 0.45)
-    ts, overrides = scenes.instanced_field(12, mats)
+    verts, faces = scenes.icosphere(subdivisions, 0.45)
+    ts, overrides = scenes.instanced_field(grid, mats)
     rs = np.random.default_rng(seed)
     closes = []
     for m in ts:
@@ -787,22 +827,35 @@ def gather_checks(scene, config, failures):
     return main
 
 
-@contextlib.contextmanager
-def attribute_ranges():
-    """Profiler ranges (``RANGE_PREFIX``) around ``surface_attributes`` and
-    the texture lookups, patched in for a profiled step only, so a profile
-    can give their device time. The lookups inside ``surface_attributes``
-    (normal maps) count in both ranges."""
-    from torch.profiler import record_function
-
+def attribute_targets():
+    """``surface_attributes`` and the texture lookups: the lookups inside
+    ``surface_attributes`` (normal maps) count in both ranges."""
     from pathtracing_tpu_torch.models import scene as scene_mod
     from pathtracing_tpu_torch.ops import texture
 
-    saved = []
-    for mod, name, label in (
-            (scene_mod, "surface_attributes", "surface_attributes"),
+    return ((scene_mod, "surface_attributes", "surface_attributes"),
             (texture, "sample_bilinear", "texture_lookups"),
-            (texture, "sample_trilinear", "texture_lookups")):
+            (texture, "sample_trilinear", "texture_lookups"))
+
+
+def volume_targets():
+    """The voxel grid's batched walks: free-flight sampling and the NEE
+    arms' ratio-tracked transmittance."""
+    from pathtracing_tpu_torch.ops import volume
+
+    return ((volume, "sample_distance", "volume_walk"),
+            (volume, "transmittance", "volume_walk"))
+
+
+@contextlib.contextmanager
+def profiler_ranges(targets):
+    """Profiler ranges (``RANGE_PREFIX``) around the functions ``targets``
+    ((module, name, label) triples), patched in for a profiled step only,
+    so a profile can give their device time."""
+    from torch.profiler import record_function
+
+    saved = []
+    for mod, name, label in targets:
         orig = getattr(mod, name)
 
         def wrapped(*args, _orig=orig, _label=RANGE_PREFIX + label, **kw):
@@ -818,19 +871,29 @@ def attribute_ranges():
             setattr(mod, name, orig)
 
 
-def profile_step(step, kernel_names, ranges=False):
+def profile_step(step, kernel_names, ranges=None):
     """Device time of one step by kernel, from torch.profiler: the share of
     each hand-written kernel in ``kernel_names``, the rest (plain torch:
     RNG, shading, sampling), and the device's busy share of the step's
-    wall time. ``ranges``: also the device time of the kernels launched
-    inside ``attribute_ranges``."""
+    wall time. ``ranges``: ``profiler_ranges`` targets whose kernels'
+    device time is also given, by label: the kernels launched by an op
+    that starts inside a range's host interval.
+
+    It reads the profiler's raw event list: ``prof.events()`` would build
+    a Python event tree of every host op first, tens of seconds for a step
+    of 10^5 device ops. Every device event but the hidden ones and the
+    device-side range annotations is a device op, as ``prof.events()``
+    counts them."""
+    import bisect
+
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with contextlib.ExitStack() as stack:
         if ranges:
-            stack.enter_context(attribute_ranges())
+            stack.enter_context(profiler_ranges(ranges))
         prof = stack.enter_context(profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]))
         t0 = time.perf_counter()
@@ -838,24 +901,45 @@ def profile_step(step, kernel_names, ranges=False):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    in_ranges = {}
-    n_kernels = 0
-    for ev in prof.events():
-        if ev.name.startswith(RANGE_PREFIX):
-            # The CPU range sums its launches' kernels; the device-side
-            # annotation is a span, not a kernel.
-            if ev.device_type == torch.autograd.DeviceType.CPU:
-                key = ev.name[len(RANGE_PREFIX):] + "_ms"
-                in_ranges[key] = (in_ranges.get(key, 0.0)
-                                  + ev.device_time_total / 1e3)
+    op_start = {}       # host op correlation id -> its start (ns)
+    spans = []          # (start ns, end ns, label) of the host ranges
+    launched = []       # (launching op's correlation id, device ms)
+    for ev in prof.profiler.kineto_results.events():
+        if ev.is_hidden_event():
+            continue        # as prof.events() drops them
+        name = ev.name()
+        if ev.device_type() == DeviceType.CPU:
+            if name.startswith(RANGE_PREFIX):
+                spans.append((ev.start_ns(), ev.end_ns(),
+                              name[len(RANGE_PREFIX):] + "_ms"))
+            elif ev.correlation_id():
+                op_start.setdefault(ev.correlation_id(), ev.start_ns())
             continue
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if ev.device_type() != DeviceType.CUDA or name.startswith(
+                RANGE_PREFIX):
             continue
-        by_name[ev.name] = (by_name.get(ev.name, 0.0)
-                            + ev.device_time_total / 1e3)
-        n_kernels += 1
+        ms = ev.duration_ns() / 1e6
+        by_name[name] = by_name.get(name, 0.0) + ms
+        launched.append((ev.linked_correlation_id(), ms))
     if not by_name:
         return {"wall_ms": wall_ms, "device_ms": "not measured"}
+    in_ranges = {}
+    for label in sorted({lb for _, _, lb in spans}):
+        # The label's host intervals, merged; a launch counts once.
+        merged = []
+        for a, b in sorted((a, b) for a, b, lb in spans if lb == label):
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        starts = [a for a, _ in merged]
+        total = 0.0
+        for cid, ms in launched:
+            t = op_start.get(cid)
+            i = -1 if t is None else bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t <= merged[i][1]:
+                total += ms
+        in_ranges[label] = total
     device_ms = sum(by_name.values())
     ours = {k: sum(v for n, v in by_name.items() if k in n)
             for k in kernel_names}
@@ -864,7 +948,7 @@ def profile_step(step, kernel_names, ranges=False):
         in_ranges = {"ranges": "not measured"}
     return {
         "wall_ms": wall_ms, "device_ms": device_ms,
-        "busy_share": device_ms / wall_ms, "device_ops": n_kernels,
+        "busy_share": device_ms / wall_ms, "device_ops": len(launched),
         **{f"{k}_ms": v for k, v in ours.items()},
         "other_ms": device_ms - sum(ours.values()),
         **in_ranges,
@@ -879,22 +963,39 @@ def launch_counts():
     return {**ct.LAUNCHES, **pgather.LAUNCHES}
 
 
+# Numbers of each timed render by label (``timed_render``).
+RENDERS = {}
+
+
+def step_fn(engine):
+    """The progressive step of ``engine``: ``progressive.render_step``
+    (megakernel) or ``wavefront.render_step``."""
+    from pathtracing_tpu_torch.models import progressive, wavefront
+
+    return {"megakernel": progressive.render_step,
+            "wavefront": wavefront.render_step}[engine]
+
+
 def timed_render(label, scene, camera, config, card, kernel_names,
-                 min_mean=0.05, steps=TIMED_STEPS, ranges=False):
-    """One warm-up step, then ``steps`` steps through
-    ``progressive.render_step`` with every launch count set to 0 just
-    before and read just after, ``resolve``, and one profiled step
-    (``ranges``: with ``attribute_ranges``). The image must be finite with
-    a mean in (``min_mean``, 5). Returns (image, launches)."""
+                 min_mean=0.05, steps=TIMED_STEPS, ranges=None,
+                 engine="megakernel"):
+    """One warm-up step, then ``steps`` steps through the ``engine``'s
+    ``render_step`` with every launch count set to 0 just before and read
+    just after, ``resolve``, and one profiled step (``ranges``: with
+    ``profiler_ranges`` of those targets). The image must be finite with
+    a mean in (``min_mean``, 5). Returns (image, launches); the numbers go
+    to ``RENDERS[label]`` (the wavefront's with its iterations and pool
+    occupancy)."""
     import torch
 
     from pathtracing_tpu_torch.models import progressive
     from pathtracing_tpu_torch.ops import cluster_trace as ct
     from pathtracing_tpu_torch.ops import pgather
 
+    step = step_fn(engine)
     state = progressive.init_state(config, device=DEVICE)
     t0 = time.perf_counter()
-    state = progressive.render_step(state, scene, camera, config)
+    state = step(state, scene, camera, config)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     stats = {}
@@ -902,8 +1003,7 @@ def timed_render(label, scene, camera, config, card, kernel_names,
     pgather.reset_launches()
     t0 = time.perf_counter()
     for _ in range(steps):
-        state = progressive.render_step(state, scene, camera, config,
-                                        stats=stats)
+        state = step(state, scene, camera, config, stats=stats)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = launch_counts()
@@ -911,18 +1011,27 @@ def timed_render(label, scene, camera, config, card, kernel_names,
     segments = int(stats["segments"])
     shadow = int(stats["shadow_segments"])
     mrays = (segments + shadow) / dt / 1e6
-    print(json.dumps({
-        "render": f"{label} {WIDTH}x{HEIGHT} depth{DEPTH} megakernel nee ld",
+    info = {
+        "render": f"{label} {WIDTH}x{HEIGHT} depth{DEPTH} {engine} nee ld",
         "warmup_step_s": warm_s, "timed_steps": steps,
         "step_s": dt / steps, "segments": segments,
         "shadow_segments": shadow, "mrays_per_s": mrays,
         "launches": launches, "card": card,
-    }), flush=True)
+    }
+    if engine == "wavefront":
+        from pathtracing_tpu_torch.models import wavefront
+
+        info.update(pool=wavefront.pool_size(config),
+                    iterations=stats["iterations"],
+                    iterations_per_step=stats["iterations"] / steps,
+                    pool_occupancy=segments / stats["slots"])
+    print(json.dumps(info), flush=True)
     print(f"{label}: {mrays:.4f} Mrays/s ({segments + shadow} segments in "
           f"{dt:.3f} s) on {card}", flush=True)
-    print(f"profile {label} " + json.dumps(profile_step(
-        lambda: progressive.render_step(state, scene, camera, config),
-        kernel_names, ranges=ranges)), flush=True)
+    prof = profile_step(lambda: step(state, scene, camera, config),
+                        kernel_names, ranges=ranges)
+    print(f"profile {label} " + json.dumps(prof), flush=True)
+    RENDERS[label] = {**info, "profile": prof}
     if tuple(image.shape) != (HEIGHT, WIDTH, 3):
         raise SmokeFailure(f"{label}: image shape {tuple(image.shape)}")
     if not bool(torch.isfinite(image).all()):
@@ -935,9 +1044,12 @@ def timed_render(label, scene, camera, config, card, kernel_names,
     return image, launches
 
 
-def check_routes(label, launches, used):
-    """Fail unless every kernel in ``used`` was launched and no other."""
+def check_routes(label, launches, used, optional=()):
+    """Fail unless every kernel in ``used`` was launched and no other
+    (``optional`` ones may be)."""
     for name, n in launches.items():
+        if name in optional:
+            continue
         if name in used and n <= 0:
             raise SmokeFailure(f"the {label} render launched no {name} "
                                "kernel")
@@ -947,14 +1059,17 @@ def check_routes(label, launches, used):
 
 
 def small_render_check(label, scene, plain_scene, cam_cfg, background,
-                       size=64, depth=DEPTH, nee_candidates=1):
+                       size=64, depth=DEPTH, nee_candidates=1,
+                       engine="megakernel"):
     """A ``size``² render at ``depth`` (2 spp) through the kernels against
     the same render through the plain versions (``plain_scene`` with
     ``traversal="cluster_torch"``). Both routes compute the same t bit for
     bit (--fmad=false), so only a tie resolved to another triangle can
     part two paths. A ``cam_cfg`` with a shutter-close pose renders
-    through its motion pair. Returns the kernel launches of the render
-    through the kernels (the counts set to 0 just before it)."""
+    through its motion pair. ``engine="wavefront"``: both renders through
+    the wavefront pool (one 2-spp step). Returns the kernel launches of
+    the render through the kernels (the counts set to 0 just before
+    it)."""
     from pathtracing_tpu_torch.models import progressive
     from pathtracing_tpu_torch.ops import cluster_trace as ct
     from pathtracing_tpu_torch.ops import pgather
@@ -973,12 +1088,19 @@ def small_render_check(label, scene, plain_scene, cam_cfg, background,
                            nee_candidates=nee_candidates)
         ct.reset_launches()
         pgather.reset_launches()
-        imgs.append(progressive.render_once(sc, cam, cfg))
+        if engine == "wavefront":
+            cfg = dataclasses.replace(cfg, samples_per_step=2)
+            state = step_fn(engine)(progressive.init_state(cfg, DEVICE), sc,
+                                    cam, cfg)
+            imgs.append(progressive.resolve(state))
+        else:
+            imgs.append(progressive.render_once(sc, cam, cfg))
         if launches is None:
             launches = launch_counts()
     diff = (imgs[0] - imgs[1]).abs().amax(-1)
     frac = float((diff > 1e-4).float().mean())
-    print(f"small render {label} {size}x{size} depth{depth} kernels vs "
+    print(f"small render {label} {size}x{size} depth{depth} {engine} "
+          "kernels vs "
           f"plain: max |diff| {float(diff.max()):.3e}, pixels over 1e-4: "
           f"{frac:.4%}", flush=True)
     if frac > 0.005:
@@ -987,12 +1109,13 @@ def small_render_check(label, scene, plain_scene, cam_cfg, background,
     return launches
 
 
-def bench_check():
+def bench_check(engine="megakernel"):
     """``python -m pathtracing_tpu_torch.bench`` in quick mode
-    (``BENCH_QUICK=1``), as a subprocess: its last line must be the JSON
-    object with ``metric``, ``value``, ``unit`` and ``vs_baseline`` null."""
-    t = phase("bench")
-    env = dict(os.environ, BENCH_QUICK="1")
+    (``BENCH_QUICK=1``) with ``BENCH_ENGINE=engine``, as a subprocess: its
+    last line must be the JSON object with ``metric``, ``value``, ``unit``
+    and ``vs_baseline`` null, the metric naming the engine."""
+    t = phase(f"bench {engine}")
+    env = dict(os.environ, BENCH_QUICK="1", BENCH_ENGINE=engine)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     out = subprocess.run([sys.executable, "-m", "pathtracing_tpu_torch.bench"],
                          cwd=ROOT, env=env, capture_output=True, text=True,
@@ -1007,15 +1130,18 @@ def bench_check():
         raise SmokeFailure(f"the bench module printed no JSON line: {e}; "
                            f"{out.stdout[-2000:]}") from e
     if (set(line) != {"metric", "value", "unit", "vs_baseline"}
-            or line["vs_baseline"] is not None or not line["value"] > 0):
+            or line["vs_baseline"] is not None or not line["value"] > 0
+            or engine not in line["metric"]):
         raise SmokeFailure(f"the bench module's line is malformed: {line}")
-    print(f"bench quick run: {time.perf_counter() - t:.2f} s", flush=True)
+    print(f"bench quick run ({engine}): {time.perf_counter() - t:.2f} s",
+          flush=True)
     return line
 
 
 def phase(name):
-    print(f"== {name}", flush=True)
-    return time.perf_counter()
+    now = time.perf_counter()
+    print(f"== {name} (at {now - START:.1f} s)", flush=True)
+    return now
 
 
 def demangled_kernel(mangled):
@@ -1560,6 +1686,299 @@ def bvh_checks(failures):
     return out
 
 
+class _Captured(Exception):
+    """Ends a render once ``capture_waves`` holds its waves."""
+
+
+def capture_waves(step, call=1):
+    """The waves the flat pair's kernel wrappers receive at their
+    ``call``-th launch (0-based) inside ``step()``: {"bounce": (origin,
+    direction, t_init), "shadow": (origin, direction, cap)}. The render is
+    cut there. Launches made here are not the main path's (every timed
+    render sets the counts to 0 first)."""
+    from pathtracing_tpu_torch.models import scene as scene_mod
+
+    saved = {q: scene_mod._ROUTES[q, "flat"] for q in ("trace", "occluded")}
+    seen = {"trace": 0, "occluded": 0}
+    waves = {}
+
+    def recorder(query, kernel):
+        def record(clusters, o, d, t):
+            if seen[query] == call:
+                waves[{"trace": "bounce", "occluded": "shadow"}[query]] = (
+                    o.clone(), d.clone(), t.clone())
+                if len(waves) == 2:
+                    raise _Captured
+            seen[query] += 1
+            return kernel(clusters, o, d, t)
+        return record
+
+    for q, (plain, kernel) in saved.items():
+        scene_mod._ROUTES[q, "flat"] = (plain, recorder(q, kernel))
+    try:
+        step()
+    except _Captured:
+        pass
+    finally:
+        scene_mod._ROUTES.update({(q, "flat"): v for q, v in saved.items()})
+    if len(waves) != 2:
+        raise SmokeFailure(f"captured {sorted(waves)} of the two waves")
+    return waves
+
+
+def new_flat_waves(scene, camera, config, media, results, failures):
+    """Rows 1-2 on the waves of this slice, each against its plain
+    version bit for bit and the JAX-order oracle: the wavefront pool's
+    second iteration on the flagship (2^20 slots of mixed depth, fresh
+    camera rays beside bounce rays) and its shadow wave, and the second
+    bounce of fog_demo and smoke_demo through the megakernel, whose rays
+    start at fog and grid collision points as well as at surfaces, with
+    the shadow rays that leave those points. Adds to ``results`` under
+    "scene:wave"."""
+    import torch
+
+    from pathtracing_tpu_torch.models import progressive
+
+    phase("kernels vs plain: wavefront pool and media waves")
+    pool_cfg = dataclasses.replace(config, wavefront_pool=WAVEFRONT_POOL)
+    cases = [("wavefront pool", scene, camera, pool_cfg, "wavefront")]
+    for name in ("fog_demo", "smoke_demo"):
+        sc, cam, cfg, _ = media[name]
+        cases.append((name, sc, cam, cfg, "megakernel"))
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    for label, sc, cam, cfg, engine in cases:
+        waves = capture_waves(lambda: step_fn(engine)(
+            progressive.init_state(cfg, DEVICE), sc, cam, cfg))
+        tk, tp, ok, op, oracle, occ_oracle = flat_fns(sc.clusters)
+        boxes = (sc.clusters.aabb_min, sc.clusters.aabb_max)
+        n_cl = int(sc.clusters.woop.shape[0])
+        # The plain versions and the oracles take BIG_SUBSET rays of a wave
+        # over many clusters (the kernel runs on the whole wave).
+        n = waves["bounce"][0].shape[0]
+        sub = (torch.randperm(n, generator=gen)[:BIG_SUBSET].sort().values
+               .to(DEVICE) if n_cl > 64 else None)
+        for key, wname, check in (
+                ("trace", "bounce", lambda w: check_trace(
+                    tk, tp, w, strict=True, normal_tol=0.0, sub=sub,
+                    reference=oracle, boxes=boxes)),
+                ("occluded", "shadow", lambda w: check_occluded(
+                    ok, op, w, sub=sub, reference=occ_oracle,
+                    boxes=boxes))):
+            wave = waves[wname]
+            res = check(wave)
+            res["n_clusters"] = n_cl
+            results[key][f"{label}:{wname}"] = res
+            report(f"{key}_dnf", res, failures, wave=wname, scene=label)
+        del waves
+        torch.cuda.empty_cache()
+
+
+def media_scenes():
+    """{name: (scene, camera, config, camera config)} of the media scenes
+    at full size, each with its preferred background."""
+    from pathtracing_tpu_torch.models import scenes
+    from pathtracing_tpu_torch.ops.camera import build_camera
+    from pathtracing_tpu_torch.utils.config import RenderConfig
+
+    out = {}
+    for name in MEDIA_SCENES:
+        sc, cc = scenes.get_scene(name, device=DEVICE)
+        out[name] = (sc, build_camera(cc, WIDTH / HEIGHT, device=DEVICE),
+                     RenderConfig(width=WIDTH, height=HEIGHT,
+                                  samples_per_pixel=TIMED_STEPS + 1,
+                                  max_depth=DEPTH, samples_per_step=1, seed=0,
+                                  background=scenes.preferred_background(
+                                      name)), cc)
+    return out
+
+
+def wavefront_flagship(scene, camera, config, card, flat_names, flat_routes,
+                       flag_label, flag_img):
+    """The flagship through the wavefront engine (pool 2^20), timed like
+    the megakernel's render: its segment count must equal the
+    megakernel's ``stats`` for the same steps, its image the megakernel's
+    within ``WAVEFRONT_IMAGE_TOL``, and a second run of one step the
+    first bit for bit. Returns its numbers."""
+    import torch
+
+    label = "flagship wavefront"
+    cfg = dataclasses.replace(config, engine="wavefront",
+                              wavefront_pool=WAVEFRONT_POOL)
+    img, la = timed_render(label, scene, camera, cfg, card, flat_names,
+                           engine="wavefront")
+    check_routes(label, la, flat_routes)
+    mine, mega = RENDERS[label], RENDERS[flag_label]
+    for key in ("segments", "shadow_segments"):
+        if mine[key] != mega[key]:
+            raise SmokeFailure(f"{label}: {key} {mine[key]} against the "
+                               f"megakernel's {mega[key]}")
+    res = {"launches": la, **compare_engines("flagship", img, flag_img)}
+    one = [engine_image(scene, camera, cfg, "wavefront", 1)
+           for _ in range(2)]
+    res["repeat_equal"] = bool(torch.equal(one[0], one[1]))
+    print(f"{label}: a second run of one step is "
+          f"{'equal bit for bit' if res['repeat_equal'] else 'DIFFERENT'}",
+          flush=True)
+    if not res["repeat_equal"]:
+        raise SmokeFailure(f"{label}: two runs of one step differ")
+    return res
+
+
+def media_renders(media, card, flat_names, flat_routes):
+    """The media scenes through the megakernel at full size (the grid
+    scenes' profiles with the walks' device time, ``volume_walk_ms``),
+    then smoke_demo through the wavefront engine (one timed step) against
+    the megakernel's image of the same two samples. Returns each render's
+    launches by label."""
+    out = {}
+    for name, (sc, cam, cfg, _) in media.items():
+        _, out[name] = timed_render(
+            name, sc, cam, cfg, card, flat_names,
+            min_mean=MIN_MEAN.get(name, 0.05),
+            ranges=volume_targets() if name in VOLUME_SCENES else None)
+        check_routes(name, out[name], flat_routes)
+    sc, cam, cfg, _ = media["smoke_demo"]
+    label = "smoke_demo wavefront"
+    wcfg = dataclasses.replace(cfg, engine="wavefront",
+                               wavefront_pool=WAVEFRONT_POOL)
+    img, out[label] = timed_render(label, sc, cam, wcfg, card, flat_names,
+                                   steps=1, ranges=volume_targets(),
+                                   engine="wavefront")
+    check_routes(label, out[label], flat_routes)
+    compare_engines(label, img, engine_image(sc, cam, cfg, "megakernel", 2))
+    return out
+
+
+def small_wavefront_checks(media, lights_scene, lights_cam_cfg,
+                           inst_cam_cfg, inst_config, cam_cfg):
+    """Small renders through the wavefront pool, kernels against plain
+    versions: an instanced field with object motion (rows 4-5, per-slot
+    shutter times), many_lights_demo (row 3; its plain route indexes the
+    table's columns), cornell_mesh(3) paged by 16 (row 6) and sss_demo
+    (the ``sss`` row in the pool). Returns the kernel launches of each."""
+    from pathtracing_tpu_torch.models import scenes
+
+    out = {}
+    motion = make_motion_demo(grid=6, subdivisions=2)
+    out["instanced motion"] = small_render_check(
+        "instanced field with motion", motion, motion, inst_cam_cfg,
+        inst_config.background, engine="wavefront")
+    check_routes("small wavefront instanced motion", out["instanced motion"],
+                 ("trace_inst", "occluded_inst"))
+    unpacked = lights_scene._replace(
+        lights=lights_scene.lights._replace(packed=None))
+    out["many_lights_demo"] = small_render_check(
+        "many_lights_demo", lights_scene, unpacked, lights_cam_cfg, "black",
+        engine="wavefront")
+    check_routes("small wavefront many_lights_demo", out["many_lights_demo"],
+                 ("trace", "occluded", "gather_rows"))
+    paged = scenes.cornell_mesh_builder(3).build(DEVICE, page_clusters=16)
+    out["cornell_mesh(3) paged by 16"] = small_render_check(
+        "cornell_mesh(3) paged by 16", paged, paged, cam_cfg, "black",
+        engine="wavefront")
+    check_routes("small wavefront paged", out["cornell_mesh(3) paged by 16"],
+                 ("trace_paged_dnf", "occluded_paged_dnf"))
+    sc, _, cfg, cc = media["sss_demo"]
+    out["sss_demo"] = small_render_check("sss_demo", sc, sc, cc,
+                                         cfg.background, engine="wavefront")
+    check_routes("small wavefront sss_demo", out["sss_demo"],
+                 ("trace", "occluded"))
+    return out
+
+
+def engine_image(scene, camera, config, engine, steps):
+    """The resolved image of ``steps`` progressive steps of ``engine`` from
+    sample 0 (untimed)."""
+    from pathtracing_tpu_torch.models import progressive
+
+    state = progressive.init_state(config, device=DEVICE)
+    for _ in range(steps):
+        state = step_fn(engine)(state, scene, camera, config)
+    return progressive.resolve(state)
+
+
+def compare_engines(label, wave_img, mega_img):
+    """The wavefront image against the megakernel's of the same samples:
+    the largest per-pixel difference, printed, within
+    ``WAVEFRONT_IMAGE_TOL``."""
+    diff = (wave_img - mega_img).abs()
+    worst = float(diff.max())
+    res = {"max_abs_diff": worst,
+           "pixels_differing": int((diff.amax(-1) > 0).sum()),
+           "tolerance": WAVEFRONT_IMAGE_TOL}
+    print(f"wavefront vs megakernel {label} " + json.dumps(res), flush=True)
+    if not worst <= WAVEFRONT_IMAGE_TOL:
+        raise SmokeFailure(f"{label}: the wavefront image parts from the "
+                           f"megakernel's by {worst}")
+    return res
+
+
+def binning_ab(tree_scene, camera, config, failures):
+    """Rows 7-8 on the unpaged cornell_mesh(8)'s camera, bounce and shadow
+    waves, binned and unbinned: each kernel's ms on the wave as it comes
+    and on the wave sorted into (cell, octant) bins (``binning.ray_bin``,
+    the sort the renders now take), the binning's own ms (bins, the
+    permutation, the gathers in and the restore out), and the binned
+    results mapped back through the inverse against the unbinned ones:
+    equal bit for bit, or within the tie contract for the closest hit
+    (every lane that parts is counted and printed)."""
+    import torch
+
+    from pathtracing_tpu_torch.ops import binning
+    from pathtracing_tpu_torch.ops import cluster_trace as ct
+
+    phase("binning A/B: rows 7-8")
+    flat = tree_scene.clusters
+    lo = torch.amin(flat.aabb_min, dim=0)
+    hi = torch.amax(flat.aabb_max, dim=0)
+    waves = make_waves(tree_scene, camera, config)
+    out = {}
+    for wname, name, kernel in (
+            ("camera", "trace_tree", ct.trace_tree),
+            ("bounce", "trace_tree", ct.trace_tree),
+            ("camera_shadow", "occluded_tree", ct.occluded_tree),
+            ("bounce_shadow", "occluded_tree", ct.occluded_tree)):
+        o, d, cap = waves[wname]
+
+        def sort(o=o, d=d, cap=cap):
+            bins = binning.ray_bin(o, d, lo, hi, cap > 0.0)
+            perm, inv = binning.binning_perm(bins, binning.N_BINS)
+            return perm, inv, o[perm], d[perm], cap[perm]
+
+        sort()
+        sort_ms, (perm, inv, ob, db, cb) = cuda_ms(sort, KERNEL_REPS)
+        kernel(flat, o, d, cap)
+        ms_u, res_u = cuda_ms(lambda: kernel(flat, o, d, cap), KERNEL_REPS)
+        ms_b, res_b = cuda_ms(lambda: kernel(flat, ob, db, cb), KERNEL_REPS)
+        if not isinstance(res_u, tuple):
+            res_u, res_b = (res_u,), (res_b,)
+        restore_ms, back = cuda_ms(lambda: tuple(x[inv] for x in res_b),
+                                   KERNEL_REPS)
+        differ = torch.zeros_like(cap, dtype=torch.bool)
+        for a, b in zip(res_u, back):
+            same = (a == b) if a.dim() == 1 else (a == b).all(dim=1)
+            differ |= ~same
+        live = cap > 0
+        bad = differ if name == "occluded_tree" else ~tie_ok(res_u, back,
+                                                             live)
+        rec = {"rays": int(cap.shape[0]), "live": int(live.sum()),
+               "unbinned_ms": ms_u, "binned_ms": ms_b,
+               "binning_ms": sort_ms + restore_ms, "sort_ms": sort_ms,
+               "restore_ms": restore_ms, "lanes_differing": int(
+                   differ.sum()), "tie_contract_fails": int(bad.sum()),
+               "bins_used": int(torch.unique(binning.ray_bin(
+                   o, d, lo, hi, live)).numel())}
+        print(f"binning {name} " + json.dumps({"wave": wname, **rec}),
+              flush=True)
+        out.setdefault(name, {})[wname] = rec
+        if int(bad.sum()):
+            failures.append(f"binning changed {int(bad.sum())} {name} "
+                            f"results on the {wname} wave")
+    del waves
+    return out
+
+
+
 def run() -> dict:
     import torch
 
@@ -1747,9 +2166,16 @@ def run() -> dict:
                  for name, (_, cc) in attr.items()}
     attribute_wave_checks(attr, attr_cams, scene, cam_cfg, config, results,
                           failures)
+    media = media_scenes()
+    new_flat_waves(scene, camera, config, media, results, failures)
 
     big = big_scene_checks(camera, config, failures)
     textured_big = textured_big_checks(camera, config, failures)
+    # An unpaged scene past the flat budget routes to the tree walks.
+    tree_scene = big["scene"]._replace(clusters=big["flat"], pages=None)
+    if scene_mod.cluster_route(tree_scene) != "tree":
+        raise SmokeFailure("the unpaged big scene does not route to the tree")
+    binning = binning_ab(tree_scene, camera, config, failures)
     if failures:
         raise SmokeFailure("kernel disagrees with its plain version: "
                            + "; ".join(failures))
@@ -1757,12 +2183,16 @@ def run() -> dict:
     phase("renders")
     flat_names = ("trace_dnf_kernel", "occluded_dnf_kernel")
     inst_names = ("trace_dnf_inst_kernel", "occluded_dnf_inst_kernel")
-    _, launches = timed_render("flagship cornell_mesh(6)", scene, camera,
-                               config, card, flat_names)
+    flat_routes = ("trace", "occluded")
+    flag_label = "flagship cornell_mesh(6)"
+    flag_img, launches = timed_render(flag_label, scene, camera, config,
+                                      card, flat_names)
     for name in ("trace", "occluded"):
         if launches[name] <= 0:
             raise SmokeFailure(f"the flagship render launched no {name} "
                                "kernel")
+    wave = wavefront_flagship(scene, camera, config, card, flat_names,
+                              flat_routes, flag_label, flag_img)
     _, inst_launches = timed_render("instanced_demo", inst_scene,
                                     inst_camera, inst_config, card,
                                     inst_names)
@@ -1791,11 +2221,10 @@ def run() -> dict:
         if big_launches[name] != 0:
             raise SmokeFailure(f"the {big_label} render launched the flat "
                                f"{name} kernel")
-    # An unpaged scene past the flat budget routes to the tree walks.
-    tree_label = f"{big_label} unpaged (tree walks)"
-    tree_scene = big["scene"]._replace(clusters=big["flat"], pages=None)
-    if scene_mod.cluster_route(tree_scene) != "tree":
-        raise SmokeFailure("the unpaged big scene does not route to the tree")
+    # The tree route bins its rays (config.ray_sort, the JAX default).
+    tree_label = f"{big_label} unpaged (tree walks, binned)"
+    if not config.ray_sort:
+        raise SmokeFailure("the renders do not sort their rays")
     _, tree_launches = timed_render(
         tree_label, tree_scene, camera, config, card,
         ("trace_tree_kernel", "occluded_tree_kernel"))
@@ -1809,7 +2238,6 @@ def run() -> dict:
             raise SmokeFailure(f"the tree-route render launched the {name} "
                                "kernel")
 
-    flat_routes = ("trace", "occluded")
     new_launches = {}
     for name in NEW_SCENES:
         sc, _ = new[name]
@@ -1841,14 +2269,15 @@ def run() -> dict:
                          attr_cams["textured_demo"]))
     for label, sc, cam in attr_renders:
         _, la = timed_render(label, sc, cam, config, card, flat_names,
-                             ranges=True)
+                             ranges=attribute_targets())
         check_routes(label, la, flat_routes)
         attr_launches[label] = la
     paged_routes = ("trace_paged_dnf", "occluded_paged_dnf")
     tb_label = f"textured cornell_mesh({BIG_SUBDIVISIONS})"
     _, tb_launches = timed_render(
         tb_label, textured_big["scene"], camera, config, card,
-        ("trace_paged_dnf_kernel", "occluded_paged_dnf_kernel"), ranges=True)
+        ("trace_paged_dnf_kernel", "occluded_paged_dnf_kernel"),
+        ranges=attribute_targets())
     check_routes(tb_label, tb_launches, paged_routes)
     for case in CAMERA_CASES:
         label = f"flagship {case}"
@@ -1859,6 +2288,7 @@ def run() -> dict:
             steps=1)
         check_routes(label, la, flat_routes)
         attr_launches[label] = la
+    media_launches = media_renders(media, card, flat_names, flat_routes)
     reference_check()
     bvh_checks(failures)
     if failures:
@@ -1922,8 +2352,15 @@ def run() -> dict:
     if min(small_tree["trace_tree"], small_tree["occluded_tree"]) <= 0:
         raise SmokeFailure("the small tree-route render left the tree "
                            "kernels")
+    for name, (sc, _, cfg, cc) in media.items():
+        check_routes(f"small {name}", small_render_check(
+            name, sc, sc, cc, cfg.background), flat_routes)
+    small_wave = small_wavefront_checks(media, lights_scene, lights_cam_cfg,
+                                        inst_cam_cfg, inst_config, cam_cfg)
+    del media
 
     bench = bench_check()
+    bench_wave = bench_check("wavefront")
 
     src = "pathtracing_tpu_torch/csrc/"
     main_inst = {"trace": "static:camera", "occluded": "static:camera_shadow"}
@@ -1931,7 +2368,9 @@ def run() -> dict:
     # path's (the flagship for rows 1-2, many_lights_demo for row 3).
     by_scene = {key: {**{name: la[key] for name, la in new_launches.items()},
                       ris_label: ris_launches[key],
-                      **{name: la[key] for name, la in attr_launches.items()}}
+                      **{name: la[key] for name, la in attr_launches.items()},
+                      "flagship wavefront": wave["launches"][key],
+                      **{name: la[key] for name, la in media_launches.items()}}
                 for key in ("trace", "occluded", "gather_rows")}
     kernels = [
         kernel_entry(
@@ -1998,16 +2437,34 @@ def run() -> dict:
     kernels += big_entries(big, big_launches, tree_launches, {
         key: {big_label: big_launches[key], tb_label: tb_launches[key]}
         for key in paged_routes})
+    # The launch counters' names of rows 1-6 and the small wavefront
+    # renders that drive them.
+    counter = {"trace_dnf": "trace", "occluded_dnf": "occluded",
+               "gather_rows": "gather_rows", "trace_dnf_inst": "trace_inst",
+               "occluded_dnf_inst": "occluded_inst",
+               "trace_paged_dnf": "trace_paged_dnf",
+               "occluded_paged_dnf": "occluded_paged_dnf"}
     for entry in kernels:
         if entry["name"] in ("trace_dnf_inst", "occluded_dnf_inst"):
             key = entry["name"].replace("_dnf", "")
             entry["launches_small_attribute_render"] = attr_inst_launches[key]
+        if entry["name"] in counter:
+            entry["launches_small_wavefront"] = {
+                label: la[counter[entry["name"]]]
+                for label, la in small_wave.items()
+                if la[counter[entry["name"]]]}
+        if entry["name"] in binning:
+            entry["binning_ab"] = binning[entry["name"]]
+        if entry["name"] in ("trace_dnf", "occluded_dnf"):
+            entry["wavefront_vs_megakernel"] = {
+                k: v for k, v in wave.items() if k != "launches"}
     for entry in kernels:
         entry["ptxas"] = {k: v for k, v in ptxas.items()
                           if k.split("<")[0] == entry["kernel"]}
         if not entry["ptxas"]:
             raise SmokeFailure(f"no ptxas -v report for {entry['kernel']}")
     print("bench " + json.dumps(bench), flush=True)
+    print("bench wavefront " + json.dumps(bench_wave), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,11 +4,15 @@ block of image rows, as one batched wave per bounce.
 
 Forward path tracing with emissive-surface, environment and delta
 lighting, NEE with MIS (optionally RIS light picks), BSDF sampling and
-Russian roulette from ``rr_start_depth``. Scenes with absorbing
-dielectrics (``mat_absorb``) carry each path's interior medium in the
-state, and scenes with a texture mip pyramid each path's distance from
-the camera (the ray cone). A moving camera is an ``(open, close)`` pair
-traced at each path's shutter time, the draw that object motion uses.
+Russian roulette from ``rr_start_depth``, participating media (fog, a
+voxel grid, interior scattering). Scenes with absorbing dielectrics
+(``mat_absorb``) carry each path's interior medium in the state, scenes
+with scattering dielectrics (``mat_interior``) its interior scattering
+row, and scenes with a texture mip pyramid its distance from the camera
+(the ray cone). With ``config.ray_sort`` a scene that walks the cluster
+tree takes each query's rays in (cell, octant) bins. A moving camera is
+an ``(open, close)`` pair traced at each path's shutter time, the draw
+that object motion uses.
 Pixel and sample ids are global, so any chunking of the rows gives the
 same per-pixel results bit for bit. The scattered-rows and
 scattered-pixels modes of the JAX engine (the adaptive schedulers' waves)
@@ -115,11 +119,13 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
     n = pixel_index.shape[0]
     dev = pixel_index.device
     # (radiance, throughput, o, d, active, prev_pdf, prev_nee[, medium]
-    # [, cone]): scenes with absorbing dielectrics carry each path's
-    # interior sigma_a (zeros: vacuum), scenes with mips its distance from
-    # the camera (zeros), and the compaction permutes them with the rest.
-    # The state is decoded by the scene's flags, never by its length.
+    # [, sss][, cone]): scenes with absorbing dielectrics carry each path's
+    # interior sigma_a (zeros: vacuum), scenes with scattering dielectrics
+    # its [sigma_s, g] row (zeros), scenes with mips its distance from the
+    # camera (zeros), and the compaction permutes them with the rest. The
+    # state is decoded by the scene's flags, never by its length.
     has_media = scene.mat_absorb is not None
+    has_sss = scene.mat_interior is not None
     has_mips = scene_mod.uses_mips(scene)
     spread = shading.cone_spread_of(camera, config) if has_mips else None
     state = (
@@ -132,6 +138,8 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
     )
     if has_media:
         state += (torch.zeros((n, 3), dtype=torch.float32, device=dev),)
+    if has_sss:
+        state += (torch.zeros((n, 2), dtype=torch.float32, device=dev),)
     if has_mips:
         state += (torch.zeros(n, dtype=torch.float32, device=dev),)
     per_path = [keys, ld_nee, ld_scatter, times]
@@ -147,8 +155,9 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
                 nee_candidates=config.nee_candidates,
                 return_shadow_count=True, time=tm,
                 medium=state[7] if has_media else None,
-                cone=state[7 + has_media] if has_mips else None,
-                cone_spread=spread,
+                sss=state[7 + has_media] if has_sss else None,
+                cone=state[7 + has_media + has_sss] if has_mips else None,
+                cone_spread=spread, bin_rays=config.ray_sort,
             )
             if stats is not None:
                 stats["segments"] = stats.get("segments", 0) + state[4].sum()
@@ -168,7 +177,7 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
     for d in depths:
         state = bounces(state, per_path, start, d)
         perm, inv = binning.binning_perm(
-            torch.where(state[4], 0, 1).to(torch.int32)
+            torch.where(state[4], 0, 1).to(torch.int32), 2
         )
         n_live = int(state[4].sum())
         undo.append((inv, state[0], perm[n_live:]))

@@ -2,8 +2,9 @@
 triangles, the threaded BVH, cluster tables, shared-geometry instances,
 the material table with its optional columns, surface attributes (per-
 corner uvs and shading normals, the slot-indexed ``attr_pack``), the
-texture atlas, the area-light table, delta lights and the environment
-map, as tensors on one device.
+texture atlas, the area-light table, delta lights, the environment map
+and the participating media (homogeneous fog, a voxel-grid volume, the
+interior scattering of dielectrics), as tensors on one device.
 
 Layout invariants (as in the JAX package):
   * ≥ 1 sphere and ≥ 1 triangle always exist (degenerate, mat_id 0, never
@@ -21,9 +22,11 @@ to the paged pair (closest hit and any hit), a flat scene of at most
 ``DNF_MAX_CLUSTERS`` clusters to the flat pair, and a larger unpaged one
 to the cluster-tree walk. ``traversal="bvh"`` walks the threaded BVH
 instead (``ops.bvh.traverse``, plain torch), as the JAX package's CPU
-default does; it refuses instanced scenes. ``scene_from_numpy`` takes the
-JAX package's Scene fields as numpy arrays, so one scene can feed both
-packages.
+default does; it refuses instanced scenes. With ``bin_rays`` both cluster
+routes sort a query's rays into (coarse cell, direction octant) bins
+first and restore their order after it (``ops.binning``), as the JAX
+package does. ``scene_from_numpy`` takes the JAX package's Scene fields
+as numpy arrays, so one scene can feed both packages.
 """
 
 from __future__ import annotations
@@ -35,12 +38,14 @@ import numpy as np
 import torch
 
 from pathtracing_tpu_torch.models.meshes import smooth_vertex_normals
+from pathtracing_tpu_torch.ops import binning
 from pathtracing_tpu_torch.ops import bvh as bvh_ops
 from pathtracing_tpu_torch.ops import clusters as cluster_ops
 from pathtracing_tpu_torch.ops import cluster_trace, envmap, intersect
 from pathtracing_tpu_torch.ops import lights, linalg
 from pathtracing_tpu_torch.ops import materials
 from pathtracing_tpu_torch.ops import texture as texture_ops
+from pathtracing_tpu_torch.ops import volume as volume_ops
 from pathtracing_tpu_torch.utils.config import resolve_device
 
 
@@ -116,6 +121,17 @@ class Scene(NamedTuple):
     mat_tex: torch.Tensor = None
     mat_ntex: torch.Tensor = None
     mat_mrtex: torch.Tensor = None
+    # (K, 2) f32 interior scattering [sigma_s, g] of dielectrics: a path
+    # inside random-walks with Exp(sigma_s) flights and Henyey–Greenstein
+    # phase scattering. None unless some material scatters (the engines
+    # then carry a per-path ``sss`` row).
+    mat_interior: torch.Tensor = None
+    # (3,) f32 homogeneous fog [sigma_s, sigma_a, g]; None for fog-free
+    # scenes, which never draw STREAM_FOG.
+    fog: torch.Tensor = None
+    # Voxel-grid medium (ops.volume.VolumeGrid); None for grid-free scenes,
+    # which never fold STREAM_VOL or STREAM_VOLT. Never together with fog.
+    vol: volume_ops.VolumeGrid = None
 
     @property
     def material_table(self):
@@ -141,14 +157,6 @@ class Hit(NamedTuple):
     slot: torch.Tensor = None
 
 
-# Scene features of the JAX package that the port does not carry yet,
-# with the ROADMAP queue-A item that ports each.
-_UNPORTED_FIELDS = {
-    "mat_interior": "item 16 (media)",
-    "fog": "item 16 (media)",
-    "vol": "item 16 (media)",
-}
-
 _FLOAT_FIELDS = ("sph_center", "sph_radius", "tri_v0", "tri_e1", "tri_e2",
                  "mat_albedo", "mat_param", "mat_emit")
 _INT_FIELDS = ("sph_mat", "tri_mat", "mat_type")
@@ -164,17 +172,11 @@ def scene_from_numpy(arrays, device) -> Scene:
     """The port's Scene from the JAX package's Scene fields as numpy
     arrays (a dict, or the Scene NamedTuple mapped through ``np.asarray``;
     ``clusters``, ``lights``, ``instances``, ``pages``, ``bvh`` and
-    ``textures`` may be dicts or NamedTuples). Fields the port does not
-    carry must be None; the TPU lookahead kernel's ``cand_box`` blocks are
-    dropped. A cluster set without a tree gets one
+    ``textures`` may be dicts or NamedTuples; ``vol`` a VolumeGrid of
+    numpy arrays or a dict of its fields). The TPU lookahead kernel's
+    ``cand_box`` blocks are dropped. A cluster set without a tree gets one
     (``clusters.with_tree``)."""
     arrays = _fields(arrays)
-    for name, item in _UNPORTED_FIELDS.items():
-        if arrays.get(name) is not None:
-            raise NotImplementedError(
-                f"scene field {name!r} is not ported yet (ROADMAP queue A "
-                f"{item})"
-            )
     device = torch.device(device)
 
     def dev(x, dtype):
@@ -249,6 +251,10 @@ def scene_from_numpy(arrays, device) -> Scene:
             for n in lights.DeltaLights._fields})
     return Scene(
         env=env, delta=delta,
+        mat_interior=opt(arrays, "mat_interior", torch.float32),
+        fog=opt(arrays, "fog", torch.float32),
+        vol=(None if arrays.get("vol") is None
+             else volume_ops.to_device(arrays["vol"], device)),
         mat_absorb=opt(arrays, "mat_absorb", torch.float32),
         mat_param2=opt(arrays, "mat_param2", torch.float32),
         mat_disp=opt(arrays, "mat_disp", torch.float32),
@@ -279,6 +285,7 @@ class SceneBuilder:
         self._mat_metallic = []  # per-material metallic (principled)
         self._mat_cc = []      # per-material (clearcoat, coat roughness)
         self._mat_absorb = []  # per-material interior sigma_a (r, g, b)
+        self._mat_sss = []     # per-material interior (sigma_s, g)
         self._mat_param2 = []  # per-material second scalar (rough alpha)
         self._mat_disp = []    # per-material IOR dispersion (blue - red)
         self._mat_aniso = []   # per-material GGX anisotropy [0, 1)
@@ -291,6 +298,42 @@ class SceneBuilder:
         self._protos = []
         self._delta = []       # delta-light spec dicts (ops.lights)
         self._env = None       # (H, W, 3) texels or an ops.envmap.EnvMap
+        self._fog = None       # (sigma_s, sigma_a, g) scattering fog
+        self._vol = None       # ops.volume.VolumeGrid on the CPU
+
+    # -- media -------------------------------------------------------------
+    def set_fog(self, sigma_s: float, sigma_a: float = 0.0,
+                g: float = 0.0) -> None:
+        """Fill the scene with a homogeneous scattering medium: shading
+        distance-samples it, scatters by the Henyey–Greenstein phase of
+        anisotropy ``g`` and combines phase sampling with NEE by MIS.
+        ``sigma_s + sigma_a`` must be > 0."""
+        if sigma_s + sigma_a <= 0.0:
+            raise ValueError("fog needs sigma_s + sigma_a > 0")
+        if not -1.0 < g < 1.0:
+            raise ValueError("HG anisotropy g must be in (-1, 1)")
+        self._fog = (float(sigma_s), float(sigma_a), float(g))
+        if self._vol is not None:
+            raise ValueError("fog and a volume grid are mutually "
+                             "exclusive (untested combined estimator)")
+
+    def set_volume(self, density, bbox_min, bbox_max, sigma_s: float,
+                   sigma_a: float = 0.0, g: float = 0.0, n_steps=None,
+                   emission=None, emit_color=None) -> None:
+        """Place a voxel-grid medium (``ops.volume``): ``density`` is a
+        (Nz, Ny, Nx) non-negative array filling the box [bbox_min,
+        bbox_max]; extinction is ``trilinear(density) * (sigma_s +
+        sigma_a)``, scattering the Henyey–Greenstein phase of anisotropy
+        ``g``. An ``emission`` grid (same shape) times ``emit_color``
+        makes the medium emit; emissive media need ``sigma_a > 0``."""
+        if self._fog is not None:
+            raise ValueError("fog and a volume grid are mutually "
+                             "exclusive (untested combined estimator)")
+        if not -1.0 < g < 1.0:
+            raise ValueError("HG anisotropy g must be in (-1, 1)")
+        self._vol = volume_ops.build_grid(
+            density, bbox_min, bbox_max, sigma_s, sigma_a=sigma_a, g=g,
+            n_steps=n_steps, emission=emission, emit_color=emit_color)
 
     # -- lights ------------------------------------------------------------
     def point_light(self, position, intensity) -> None:
@@ -371,7 +414,7 @@ class SceneBuilder:
                      normal_map=None, dispersion=0.0, metallic=0.0,
                      mr_texture=None, clearcoat=0.0,
                      clearcoat_roughness=0.1, anisotropy=0.0,
-                     scattering=0.0) -> int:
+                     scattering=0.0, scatter_g=0.0) -> int:
         """``texture``: a texture id, or an image array, whose texel
         MODULATES the albedo (the emission of an emitter) at uv-mapped hits;
         ``normal_map``: a tangent-space normal map (texels decode as
@@ -381,18 +424,19 @@ class SceneBuilder:
         dielectrics: paths inside lose exp(−sigma_a · distance));
         ``param2``: the rough dielectric's GGX alpha; ``dispersion``: the
         IOR spread of a smooth dielectric; ``anisotropy`` in [0, 1): the
-        GGX conductor's. Interior scattering (``scattering`` > 0) is not
-        ported yet (ROADMAP queue A item 16)."""
-        if scattering > 0.0:
-            raise NotImplementedError(
-                "interior scattering (subsurface media) is not ported yet "
-                "(ROADMAP queue A item 16)"
-            )
+        GGX conductor's; ``scattering``: the interior scattering
+        coefficient sigma_s of a dielectric, with HG anisotropy
+        ``scatter_g`` (``Scene.mat_interior``)."""
         if not 0.0 <= anisotropy < 1.0:
             raise ValueError("anisotropy must be in [0, 1)")
+        if scattering < 0.0:
+            raise ValueError("scattering (sigma_s) must be >= 0")
+        if not -1.0 < scatter_g < 1.0:
+            raise ValueError("HG anisotropy scatter_g must be in (-1, 1)")
         self._mat.append((int(mtype), tuple(albedo), float(param),
                           tuple(emit)))
         self._mat_absorb.append(tuple(float(x) for x in absorption))
+        self._mat_sss.append((float(scattering), float(scatter_g)))
         self._mat_param2.append(float(param2))
         self._mat_disp.append(float(dispersion))
         self._mat_metallic.append(float(metallic))
@@ -441,23 +485,29 @@ class SceneBuilder:
 
     def dielectric(self, ior=1.5, tint=(1.0, 1.0, 1.0),
                    absorption=(0.0, 0.0, 0.0), roughness=0.0,
-                   dispersion=0.0, scattering=0.0) -> int:
+                   dispersion=0.0, scattering=0.0,
+                   scatter_g=0.0) -> int:
         """``absorption``: interior sigma_a (Beer–Lambert), e.g.
         (0.1, 2.0, 2.0) is red glass. ``roughness`` > 0 selects the
         microfacet (Walter 2007) glass with GGX alpha = roughness.
         ``dispersion``: IOR spread blue − red, smooth dielectrics only;
         a path splits to one RGB channel at its first dispersive hit.
-        ``scattering`` (interior media) is not ported yet (ROADMAP queue A
-        item 16)."""
+        ``scattering``: interior sigma_s; paths inside random-walk with
+        Exp(sigma_s) flights and HG anisotropy ``scatter_g`` (volumetric
+        subsurface scattering; a chromatic ``absorption`` colors it).
+        Dispersion and scattering are mutually exclusive."""
+        if scattering > 0.0 and dispersion > 0.0:
+            raise ValueError("dispersion + scattering unsupported")
         if roughness > 0.0:
             return self.add_material(
                 materials.TYPE_ROUGH_DIELECTRIC, tint, ior,
                 absorption=absorption, param2=roughness,
-                scattering=scattering,
+                scattering=scattering, scatter_g=scatter_g,
             )
         return self.add_material(
             materials.TYPE_DIELECTRIC, tint, ior, absorption=absorption,
             dispersion=dispersion, scattering=scattering,
+            scatter_g=scatter_g,
         )
 
     def emissive(self, radiance, texture=None) -> int:
@@ -742,6 +792,16 @@ class SceneBuilder:
         disp = np.array(self._mat_disp, np.float32)
         aniso = np.array(self._mat_aniso, np.float32)
         mat_absorb = dev(absorb) if (absorb > 0.0).any() else None
+        sss = np.array(self._mat_sss, np.float32)
+        mat_interior = None
+        if (sss[:, 0] > 0.0).any():
+            if self._fog is not None or self._vol is not None:
+                raise ValueError(
+                    "interior scattering and fog/volume grids are "
+                    "mutually exclusive (the combined estimator is "
+                    "untested)"
+                )
+            mat_interior = dev(sss)
         mat_param2 = (dev(np.array(self._mat_param2, np.float32))
                       if (mat_type == materials.TYPE_ROUGH_DIELECTRIC).any()
                       else None)
@@ -777,6 +837,10 @@ class SceneBuilder:
 
         return Scene(
             env=env, delta=lights.build_delta_lights(self._delta, device),
+            mat_interior=mat_interior,
+            fog=dev(self._fog) if self._fog is not None else None,
+            vol=(volume_ops.to_device(self._vol, device)
+                 if self._vol is not None else None),
             mat_absorb=mat_absorb, mat_param2=mat_param2, mat_disp=mat_disp,
             mat_aniso=mat_aniso,
             mat_metallic=mat_metallic, mat_clearcoat=mat_clearcoat,
@@ -866,12 +930,12 @@ def uses_mips(scene: Scene) -> bool:
 
 def uses_dnf(scene: Scene) -> bool:
     """True when cluster queries route to a cluster sweep (flat, instanced
-    or paged): the megakernel then compacts its waves, as in the JAX
-    package. False only for an unpaged scene past ``DNF_MAX_CLUSTERS``,
-    which walks the cluster tree. (The JAX package also sorts that route's
-    rays into octant bins, ``binning.ray_bin``; the result does not depend
-    on the order, and the port's walk takes each ray's own octant, so the
-    port does not bin: ROADMAP queue A item 13.)"""
+    or paged): the megakernel then compacts its waves, and shading does
+    not bin their rays, as in the JAX package. False only for an unpaged
+    scene past ``DNF_MAX_CLUSTERS``, which walks the cluster tree; with
+    ``RenderConfig.ray_sort`` that route's queries take their rays in
+    (cell, octant) bins (``binning.ray_bin``). A query's result does not
+    depend on the order of its rays."""
     return scene.clusters is not None and (
         scene.pages is not None
         or scene.instances is not None
@@ -1125,15 +1189,34 @@ def intersect_scene(scene: Scene, origin, direction) -> Hit:
     )
 
 
+def _binned(scene: Scene, query, origin, direction, cap, time):
+    """``query`` on the rays sorted into (coarse cell, direction octant)
+    bins over the scene's box (the instances' boxes, else the clusters'),
+    lanes with a zero cap in the last bin; the results come back in the
+    rays' own order."""
+    src = scene.instances if scene.instances is not None else scene.clusters
+    lo = torch.amin(src.aabb_min, dim=0)
+    hi = torch.amax(src.aabb_max, dim=0)
+    bins = binning.ray_bin(origin, direction, lo, hi, cap > 0.0)
+    perm, inv = binning.binning_perm(bins, binning.N_BINS)
+    out = query(origin[perm], direction[perm], cap[perm],
+                None if time is None else time[perm])
+    if isinstance(out, tuple):
+        return tuple(x[inv] for x in out)
+    return out[inv]
+
+
 def occluded_batch(scene: Scene, origin, direction, t_max,
-                   traversal: str, active=None, time=None):
+                   traversal: str, active=None, time=None,
+                   bin_rays: bool = False):
     """Any-hit occlusion for a (R, 3) ray batch: True where any primitive
     lies strictly inside (T_MIN, t_max). Lanes the sphere pass already
     occluded, and inactive lanes, get a zero cap so the cluster sweep
     skips them (the result ORs the sphere answer back in). ``time``
     (optional (R,)): per-ray shutter time for motion-blurred instances.
-    The "bvh" route answers with its closest hit, ``t < t_max``, as the
-    JAX package does."""
+    ``bin_rays``: the cluster query takes its rays in bins
+    (``_binned``). The "bvh" route answers with its closest hit,
+    ``t < t_max``, as the JAX package does, and does not bin."""
     if traversal == "bvh":
         hit = intersect_scene(scene, origin, direction)
         occ = hit.valid & (hit.t < t_max)
@@ -1147,19 +1230,24 @@ def occluded_batch(scene: Scene, origin, direction, t_max,
     if active is not None:
         cap = torch.where(active, cap, 0.0)
     cap = torch.where(occ_sph, 0.0, cap)
+    if bin_rays:
+        return occ_sph | _binned(scene, query, origin, direction, cap, time)
     return occ_sph | query(origin, direction, cap, time)
 
 
 def intersect_batch(scene: Scene, origin, direction, traversal: str,
-                    active=None, t_max=None, time=None) -> Hit:
+                    active=None, t_max=None, time=None,
+                    bin_rays: bool = False) -> Hit:
     """Closest hit for a whole (R, 3) ray batch. Spheres first (their best
     t culls the cluster sweep); ``active`` (optional (R,) bool) gives dead
     lanes ``t_init = 0``, and their Hit fields are garbage the callers
     mask. ``time`` (optional (R,)): per-ray shutter time for
-    motion-blurred instances. The "bvh" route (``intersect_scene``)
-    ignores ``active``, ``t_max`` and ``time``, as the JAX package's
-    does. ``prim`` resolves a cluster hit's slot through ``slot_to_tri``
-    where the scene has it (-1 elsewhere, with no gather)."""
+    motion-blurred instances. ``bin_rays``: the cluster query takes its
+    rays in bins (``_binned``). The "bvh" route (``intersect_scene``)
+    ignores ``active``, ``t_max``, ``time`` and ``bin_rays``, as the JAX
+    package's does. ``prim`` resolves a cluster hit's slot through
+    ``slot_to_tri`` where the scene has it (-1 elsewhere, with no
+    gather)."""
     if traversal == "bvh":
         return intersect_scene(scene, origin, direction)
     query = _cluster_query(scene, "trace", traversal)
@@ -1171,7 +1259,11 @@ def intersect_batch(scene: Scene, origin, direction, traversal: str,
     if active is not None:
         t_init = torch.where(active, t_init, 0.0)
 
-    tri_t, slot, n_tri, mat_tri = query(origin, direction, t_init, time)
+    if bin_rays:
+        tri_t, slot, n_tri, mat_tri = _binned(scene, query, origin, direction,
+                                              t_init, time)
+    else:
+        tri_t, slot, n_tri, mat_tri = query(origin, direction, t_init, time)
 
     hit_tri = slot >= 0
     t = torch.where(hit_tri, tri_t, sph_t)

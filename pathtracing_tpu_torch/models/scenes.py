@@ -6,7 +6,9 @@ reference sphere, the Veach MIS strips, the checker hero shot, the glass,
 frosted, prism, environment-map, principled and spotlight showcases, the
 instancing field, the many-light hall and the surface-attribute scenes
 (textured_demo, bump_demo, screenlight_demo, with their procedural
-textures ``grid_texture`` and ``ripple_normal_map``).
+textures ``grid_texture`` and ``ripple_normal_map``) and the media
+(fog_demo, smoke_demo and fire_demo over the procedural plume
+``smoke_density``, sss_demo): all 21 of the JAX registry's scenes.
 
 Cornell geometry: axis-aligned box spanning [-1, 1]³, open toward +z,
 camera on the +z axis, an emissive quad centered on the ceiling.
@@ -573,6 +575,107 @@ def screenlight_demo(device=None) -> Tuple[Scene, CameraConfig]:
     return b.build(device), cam
 
 
+def fog_demo(device=None) -> Tuple[Scene, CameraConfig]:
+    """Volumetric scattering: the Cornell box filled with a forward-
+    scattering homogeneous fog (sigma_s 0.22, sigma_a 0.02, g 0.4) around a
+    metal and a diffuse sphere: distance sampling, HG phase scattering,
+    the shared medium/surface NEE shadow ray and phase-light MIS."""
+    b = SceneBuilder()
+    _cornell_walls(b)
+    metal = b.metal((0.85, 0.85, 0.9), 0.02)
+    diffuse = b.lambertian((0.55, 0.45, 0.35))
+    b.add_sphere((-0.45, -0.6, -0.3), 0.4, metal)
+    b.add_sphere((0.5, -0.65, 0.25), 0.35, diffuse)
+    b.set_fog(sigma_s=0.22, sigma_a=0.02, g=0.4)
+    return b.build(device), CORNELL_CAMERA
+
+
+def smoke_density(res: int = 48, blobs: int = 160,
+                  seed: int = 7) -> np.ndarray:
+    """Procedural smoke-plume density grid (res, res, res): Gaussian puffs
+    along a rising, swirling axis, fading and widening with height, from a
+    fixed numpy seed; normalised to max 1."""
+    rng_np = np.random.default_rng(seed)
+    t = np.linspace(0.0, 1.0, blobs, dtype=np.float32)
+    swirl = 0.22 * (1.0 - t)
+    cx = 0.5 + swirl * np.cos(9.0 * t) + 0.03 * rng_np.standard_normal(blobs)
+    cy = 0.08 + 0.84 * t + 0.02 * rng_np.standard_normal(blobs)
+    cz = 0.5 + swirl * np.sin(9.0 * t) + 0.03 * rng_np.standard_normal(blobs)
+    radius = (0.05 + 0.16 * t).astype(np.float32)
+    weight = (1.0 - 0.65 * t).astype(np.float32)
+
+    g = (np.arange(res, dtype=np.float32) + 0.5) / res
+    gz, gy, gx = np.meshgrid(g, g, g, indexing="ij")
+    dens = np.zeros((res, res, res), np.float32)
+    for i in range(blobs):
+        d2 = ((gx - cx[i]) ** 2 + (gy - cy[i]) ** 2
+              + (gz - cz[i]) ** 2) / (radius[i] ** 2)
+        dens += weight[i] * np.exp(-3.0 * d2, dtype=np.float32)
+    dens -= 0.08 * dens.max()           # carve wispy zero-density edges
+    np.maximum(dens, 0.0, out=dens)
+    return dens / max(float(dens.max()), 1e-9)
+
+
+def smoke_demo(device=None) -> Tuple[Scene, CameraConfig]:
+    """Heterogeneous media: a procedural smoke plume (``ops.volume`` voxel
+    grid, delta tracking) rising through the Cornell box under the ceiling
+    light, a metal sphere behind it: free flights through empty and dense
+    regions, in-medium NEE with ratio-tracked shadow transmittance, and
+    the grid occluding surface NEE."""
+    b = SceneBuilder()
+    _cornell_walls(b)
+    metal = b.metal((0.85, 0.85, 0.9), 0.02)
+    b.add_sphere((0.55, -0.6, -0.35), 0.35, metal)
+    b.set_volume(
+        smoke_density(), bbox_min=(-0.62, -1.0, -0.52),
+        bbox_max=(0.38, 0.7, 0.48), sigma_s=14.0, sigma_a=1.2, g=0.25,
+    )
+    return b.build(device), CORNELL_CAMERA
+
+
+def fire_demo(device=None) -> Tuple[Scene, CameraConfig]:
+    """Emissive media: the smoke plume's dense core emits blackbody-orange
+    radiance (emission grid = density²) over a dim gray floor with no
+    other light: the flame is the light source, through the collision-
+    sampled emission estimator."""
+    b = SceneBuilder()
+    floor = b.lambertian((0.4, 0.4, 0.42))
+    b.add_quad((-3.0, -1.0, -3.0), (6.0, 0.0, 0.0), (0.0, 0.0, 6.0),
+               floor)
+    dens = smoke_density()
+    b.set_volume(
+        dens, bbox_min=(-0.62, -1.0, -0.52), bbox_max=(0.38, 0.7, 0.48),
+        sigma_s=10.0, sigma_a=6.0, g=0.0,
+        emission=dens * dens, emit_color=(14.0, 5.5, 1.6),
+    )
+    cam = CameraConfig(position=(0.4, 0.2, 3.2), look_at=(-0.1, -0.2, 0.0),
+                       vfov_degrees=38.0)
+    return b.build(device), cam
+
+
+def sss_demo(device=None) -> Tuple[Scene, CameraConfig]:
+    """Subsurface scattering: four spheres sweeping the interior random
+    walk (``SceneBuilder.dielectric(scattering=...)``) over a checker floor
+    under the gradient sky: milk, jade, amber wax and a clear-glass
+    control."""
+    b = SceneBuilder()
+    ground = b.checker((0.8, 0.8, 0.8), (0.25, 0.25, 0.28), 1.5)
+    b.add_quad((-30.0, 0.0, -30.0), (60.0, 0.0, 0.0), (0.0, 0.0, 60.0),
+               ground)
+    milk = b.dielectric(1.35, scattering=9.0, scatter_g=0.2,
+                        absorption=(0.02, 0.04, 0.12))
+    jade = b.dielectric(1.5, scattering=4.0, scatter_g=0.6,
+                        absorption=(1.6, 0.12, 1.3))
+    wax = b.dielectric(1.45, scattering=2.5, scatter_g=0.0,
+                       absorption=(0.05, 0.5, 1.8))
+    clear = b.dielectric(1.5)
+    for x, m in [(-2.4, milk), (-0.8, jade), (0.8, wax), (2.4, clear)]:
+        b.add_sphere((x, 0.7, 0.0), 0.7, m)
+    cam = CameraConfig(position=(0.0, 1.5, 5.2), look_at=(0.0, 0.65, 0.0),
+                       vfov_degrees=36.0)
+    return b.build(device), cam
+
+
 SCENES: Dict[str, Callable[..., Tuple[Scene, CameraConfig]]] = {
     "cornell_sphere": cornell_sphere,
     "cornell_bsdf": cornell_bsdf,
@@ -586,20 +689,15 @@ SCENES: Dict[str, Callable[..., Tuple[Scene, CameraConfig]]] = {
     "prism_demo": prism_demo,
     "glass_demo": glass_demo,
     "frosted_demo": frosted_demo,
+    "fog_demo": fog_demo,
+    "smoke_demo": smoke_demo,
+    "fire_demo": fire_demo,
     "instanced_demo": instanced_demo,
     "principled_demo": principled_demo,
     "spotlight_demo": spotlight_demo,
     "screenlight_demo": screenlight_demo,
     "many_lights_demo": many_lights_demo,
-}
-
-# Scenes of the JAX registry that need features the port does not carry
-# yet, with the ROADMAP queue-A item that ports them.
-UNPORTED_SCENES: Dict[str, str] = {
-    "fog_demo": "item 16 (media)",
-    "smoke_demo": "item 16 (media)",
-    "fire_demo": "item 16 (media)",
-    "sss_demo": "item 16 (media)",
+    "sss_demo": sss_demo,
 }
 
 # Emitter-free outdoor scenes are lit by the sky alone: a caller that
@@ -612,6 +710,7 @@ PREFERRED_BACKGROUND: Dict[str, str] = {
     "glass_demo": "gradient",
     "frosted_demo": "gradient",
     "instanced_demo": "gradient",
+    "sss_demo": "gradient",
 }
 
 
@@ -622,11 +721,6 @@ def preferred_background(name: str) -> str:
 def get_scene(name: str, device=None) -> Tuple[Scene, CameraConfig]:
     """The registry scene ``name`` on ``device`` (the card unless the
     caller asks for another device)."""
-    if name in UNPORTED_SCENES:
-        raise NotImplementedError(
-            f"scene {name!r} is not ported yet (ROADMAP queue A "
-            f"{UNPORTED_SCENES[name]})"
-        )
     if name not in SCENES:
         raise KeyError(f"unknown scene {name!r}; have {sorted(SCENES)}")
     return SCENES[name](device=device)

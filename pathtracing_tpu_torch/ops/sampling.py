@@ -1,5 +1,5 @@
-"""Monte Carlo sampling primitives (the JAX package's ``ops/sampling.py``,
-as far as the flagship path needs them). All take explicit uniforms."""
+"""Monte Carlo sampling primitives (the JAX package's ``ops/sampling.py``).
+All take explicit uniforms."""
 
 from __future__ import annotations
 
@@ -7,6 +7,7 @@ import torch
 
 from pathtracing_tpu_torch.ops import linalg
 
+PI = 3.141592653589793
 TWO_PI = 6.283185307179586
 
 
@@ -52,3 +53,32 @@ def schlick_fresnel(cos_i, ior_ratio):
     r0 = r0 * r0
     m = torch.clamp(1.0 - cos_i, 0.0, 1.0)
     return r0 + (1.0 - r0) * m * m * m * m * m
+
+
+def hg_phase(g, cos_t):
+    """Henyey–Greenstein phase value p(cosθ), normalized over the sphere,
+    so it is also the solid-angle pdf of ``hg_sample``."""
+    g2 = g * g
+    denom = torch.clamp(1.0 + g2 - 2.0 * g * cos_t, min=1e-6)
+    return (1.0 - g2) / (4.0 * PI * denom * torch.sqrt(denom))
+
+
+def hg_sample(d, g, u1, u2):
+    """A Henyey–Greenstein direction about the incident direction ``d``:
+    (direction, cosθ). ``|g| < 1e-3`` takes the isotropic inversion (the
+    HG inversion divides by g). The direction's pdf is
+    ``hg_phase(g, cosθ)``. ``g``: a 0-d or per-ray tensor."""
+    small = torch.abs(g) < 1e-3
+    safe_g = torch.where(small, 1e-3, g)
+    sq = (1.0 - safe_g * safe_g) / torch.clamp(
+        1.0 - safe_g + 2.0 * safe_g * u1, min=1e-6)
+    cos_hg = (1.0 + safe_g * safe_g - sq * sq) / (2.0 * safe_g)
+    cos_t = torch.clamp(torch.where(small, 1.0 - 2.0 * u1, cos_hg), -1.0,
+                        1.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = TWO_PI * u2
+    t, b = linalg.orthonormal_basis(d)
+    out = ((sin_t * torch.cos(phi))[..., None] * t
+           + (sin_t * torch.sin(phi))[..., None] * b
+           + cos_t[..., None] * d)
+    return linalg.normalize(out), cos_t

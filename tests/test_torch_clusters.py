@@ -108,11 +108,14 @@ def test_scene_from_numpy_round_trip(scenes):
 
 
 def test_scene_from_numpy_refuses_unported_fields(scenes):
+    """No JAX Scene field is refused any more (the media fields were the
+    last): a fog row given to ``scene_from_numpy`` comes across as is."""
     j, _ = scenes["mesh"]
     arrays = jax.tree.map(np.asarray, j)._asdict()
-    arrays["fog"] = np.zeros(3, np.float32)
-    with pytest.raises(NotImplementedError, match="fog"):
-        tscene_mod.scene_from_numpy(arrays, "cpu")
+    arrays["fog"] = np.array([0.2, 0.01, 0.3], np.float32)
+    s = tscene_mod.scene_from_numpy(arrays, "cpu")
+    assert torch.equal(s.fog, torch.tensor([0.2, 0.01, 0.3]))
+    assert s.vol is None and s.mat_interior is None
 
 
 def _t0(n):

@@ -1,25 +1,24 @@
 """Port parity: the scene registry and the bench entry point.
 
-Every ``Scene`` field of each of the port's 17 registry scenes equals the
-JAX package's, built from the same builder calls: the None/non-None
-pattern of every optional column and table (``mat_absorb``,
-``mat_param2``, ``mat_disp``, ``mat_aniso``, ``mat_metallic``,
-``mat_clearcoat``, ``env``, ``delta``, ``instances``, ``pages``, the
-surface attributes, ``textures`` and the ``mat_*tex`` columns), and every
-array, bit for bit, the threaded ``bvh`` included. Both sides build the
-BVH order and the cluster tables in numpy (the JAX side's native builder
-is switched off, the port's C++ builder gives the numpy bytes). JAX fields
-the port does not carry (item 16's media) are None in every one of these
-scenes, apart from the dropped ``cand_box``. ``PREFERRED_BACKGROUND`` is
-the JAX map restricted to the port's scenes, and ``get_scene`` raises
-``NotImplementedError`` naming the queue-A item for the four JAX scenes
-it cannot build yet.
+Every ``Scene`` field of each of the port's 21 registry scenes (all of
+the JAX registry's) equals the JAX package's, built from the same builder
+calls: the None/non-None pattern of every optional column and table
+(``mat_absorb``, ``mat_param2``, ``mat_disp``, ``mat_aniso``,
+``mat_metallic``, ``mat_clearcoat``, ``mat_interior``, ``fog``, ``vol``,
+``env``, ``delta``, ``instances``, ``pages``, the surface attributes,
+``textures`` and the ``mat_*tex`` columns), and every array, bit for bit,
+the threaded ``bvh`` and the voxel grid's tables included. Both sides
+build the BVH order and the cluster tables in numpy (the JAX side's
+native builder is switched off, the port's C++ builder gives the numpy
+bytes); the TPU-only ``cand_box`` is dropped. ``PREFERRED_BACKGROUND`` is
+the JAX map.
 
 The bench module (``python -m pathtracing_tpu_torch.bench``) exits
 non-zero with a message when no CUDA device is present, and resolves
 ``BENCH_SCENE`` through the registry.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -39,13 +38,13 @@ torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORTED = sorted(tscenes.SCENES)
-MISSING = {"fog_demo": "item 16", "smoke_demo": "item 16",
-           "fire_demo": "item 16", "sss_demo": "item 16"}
 # Tables compared field by field; the rest of a Scene is arrays.
 TABLES = ("clusters", "lights", "instances", "pages", "env", "delta", "bvh",
-          "textures")
+          "textures", "vol")
 # JAX-only table fields the port drops by design (TPU-only layout).
 DROPPED = {"cand_box"}
+# build() arguments per builder class (the port's takes the device).
+BUILD_KW = {tscene_mod.SceneBuilder: {"device": "cpu"}}
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +64,11 @@ def _np(x):
 
 
 def _fields_of(x):
-    return x._asdict() if hasattr(x, "_asdict") else dict(x)
+    if hasattr(x, "_asdict"):
+        return x._asdict()
+    if dataclasses.is_dataclass(x):
+        return {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+    return dict(x)
 
 
 def _assert_arrays_equal(a, b, what):
@@ -77,25 +80,17 @@ def _assert_arrays_equal(a, b, what):
 
 
 def test_registry_holds_the_fourteen_scenes():
-    """Fourteen scenes until the surface-attribute slice added three."""
-    assert len(tscenes.SCENES) == 17
-    assert set(tscenes.SCENES) | set(MISSING) == set(jscenes.SCENES)
-    assert not set(tscenes.SCENES) & set(MISSING)
+    """Fourteen scenes until the surface-attribute slice added three; the
+    media slice adds the last four, so the registry is the JAX one."""
+    assert len(tscenes.SCENES) == 21
+    assert set(tscenes.SCENES) == set(jscenes.SCENES)
 
 
 def test_preferred_background_is_the_jax_map_restricted():
-    assert tscenes.PREFERRED_BACKGROUND == {
-        k: v for k, v in jscenes.PREFERRED_BACKGROUND.items()
-        if k in tscenes.SCENES}
+    assert tscenes.PREFERRED_BACKGROUND == jscenes.PREFERRED_BACKGROUND
     for name in PORTED:
         assert (tscenes.preferred_background(name)
                 == jscenes.preferred_background(name))
-
-
-@pytest.mark.parametrize("name", sorted(MISSING))
-def test_get_scene_names_the_item_of_a_missing_scene(name):
-    with pytest.raises(NotImplementedError, match=MISSING[name]):
-        tscenes.get_scene(name, device="cpu")
 
 
 def test_get_scene_refuses_unknown_names():
@@ -153,11 +148,13 @@ def test_optional_columns_follow_the_materials(built):
 
 
 @pytest.mark.parametrize("name", ["glass_demo", "frosted_demo", "prism_demo",
-                                  "envmap_demo", "spotlight_demo"])
+                                  "envmap_demo", "spotlight_demo", "fog_demo",
+                                  "smoke_demo", "fire_demo", "sss_demo"])
 def test_scene_from_numpy_carries_the_new_fields(built, name):
     scene_j, scene_t = built[name]
     s = tscene_mod.scene_from_numpy(jax.tree.map(np.asarray, scene_j), "cpu")
-    for f in ("mat_absorb", "mat_param2", "mat_disp", "mat_aniso"):
+    for f in ("mat_absorb", "mat_param2", "mat_disp", "mat_aniso",
+              "mat_interior", "fog"):
         a, b = getattr(s, f), getattr(scene_t, f)
         assert (a is None) == (b is None), f
         if a is not None:
@@ -168,19 +165,65 @@ def test_scene_from_numpy_carries_the_new_fields(built, name):
         if a is not None:
             for x, y in zip(a, b):
                 assert x.dtype == y.dtype and torch.equal(x, y), f
+    assert (s.vol is None) == (scene_t.vol is None)
+    if s.vol is not None:
+        for f, x in _fields_of(s.vol).items():
+            y = getattr(scene_t.vol, f)
+            assert (x is None) == (y is None), f
+            if x is not None:
+                _assert_arrays_equal(x, y, f)
 
 
-def test_scene_from_numpy_refuses_interior_media(built):
-    arrays = jax.tree.map(np.asarray, built["glass_demo"][0])._asdict()
-    arrays["mat_interior"] = np.zeros((6, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tscene_mod.scene_from_numpy(arrays, "cpu")
+def _media_refusals(builder_cls):
+    """The message of each media refusal of a builder class (None where it
+    builds): fog then a grid, a grid then fog, scattering with fog,
+    scattering with a grid, dispersion with scattering, bad anisotropy
+    and negative scattering."""
+    dens = np.ones((2, 2, 2), np.float32)
+
+    def grid(b):
+        b.set_volume(dens, (0, 0, 0), (1, 1, 1), sigma_s=1.0)
+
+    def scatter(b):
+        b.dielectric(1.5, scattering=2.0)
+
+    cases = {
+        "fog then grid": lambda b: (b.set_fog(0.2), grid(b)),
+        "grid then fog": lambda b: (grid(b), b.set_fog(0.2)),
+        "scattering with fog": lambda b: (b.set_fog(0.2), scatter(b),
+                                          b.build(**BUILD_KW[builder_cls])),
+        "scattering with grid": lambda b: (grid(b), scatter(b),
+                                           b.build(**BUILD_KW[builder_cls])),
+        "dispersion with scattering": lambda b: b.dielectric(
+            1.5, scattering=1.0, dispersion=0.05),
+        "fog g": lambda b: b.set_fog(0.2, g=1.0),
+        "fog sigma": lambda b: b.set_fog(0.0),
+        "grid g": lambda b: b.set_volume(dens, (0, 0, 0), (1, 1, 1), 1.0,
+                                         g=-1.0),
+        "negative scattering": lambda b: b.dielectric(1.5, scattering=-1.0),
+        "scatter g": lambda b: b.dielectric(1.5, scattering=1.0,
+                                            scatter_g=1.0),
+        "negative density": lambda b: b.set_volume(-dens, (0, 0, 0),
+                                                   (1, 1, 1), 1.0),
+    }
+    out = {}
+    for case, fn in cases.items():
+        try:
+            fn(builder_cls())
+            out[case] = None
+        except ValueError as e:
+            out[case] = str(e)
+    return out
 
 
 def test_builder_refuses_scattering_and_bad_anisotropy():
+    from pathtracing_tpu.models.scene import SceneBuilder as JBuilder
+
+    BUILD_KW[JBuilder] = {}
+    refusals = _media_refusals(tscene_mod.SceneBuilder)
+    assert refusals == _media_refusals(JBuilder)
+    assert all(refusals.values()), refusals
     b = tscene_mod.SceneBuilder()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        b.dielectric(1.5, scattering=2.0)
     with pytest.raises(ValueError):
         b.ggx((0.5, 0.5, 0.5), anisotropy=1.0)
     with pytest.raises(ValueError):
@@ -227,5 +270,9 @@ def test_bench_knobs_and_scene_resolution():
     assert scene.tri_v0.shape[0] == 20 * 4 ** 4 + 12
     scene, cam = bench.load_scene("spotlight_demo", False, device="cpu")
     assert scene.delta is not None and cam.vfov_degrees == 40.0
-    with pytest.raises(NotImplementedError, match="item 16"):
-        bench.load_scene("fog_demo", False, device="cpu")
+    scene, cam = bench.load_scene("fog_demo", False, device="cpu")
+    assert scene.fog is not None and scene.vol is None
+    assert bench.bench_engine({}) == "megakernel"
+    assert bench.bench_engine({"BENCH_ENGINE": "wavefront"}) == "wavefront"
+    with pytest.raises(ValueError, match="BENCH_ENGINE"):
+        bench.bench_engine({"BENCH_ENGINE": "reference"})

@@ -251,15 +251,3 @@ def test_one_bounce_matches(depth):
     np.testing.assert_allclose(np.asarray(out_j[3])[live],
                                out_t[3].numpy()[live], atol=1e-5)
     assert rad_t.max() > 0.0
-
-
-def test_unported_branches_raise():
-    scene_t, _ = tscenes.cornell_sphere(device="cpu")
-    o = torch.zeros((4, 3))
-    d = torch.tensor([[0.0, 0.0, -1.0]] * 4)
-    keys = trng.pixel_sample_key(0, torch.arange(4), 0)
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        tshading.bounce_batch(scene_t, o, d, keys, torch.zeros(4, dtype=int),
-                              torch.zeros((4, 3)), torch.ones((4, 3)),
-                              torch.ones(4, dtype=bool), 8, "black",
-                              "cluster_torch")
