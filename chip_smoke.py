@@ -128,6 +128,30 @@ Phases, in order; any failure exits non-zero:
                textured_demo at 128x128, depth 4: its hits on the camera
                and first bounce waves against the cluster route's, its
                image within 1e-4 of theirs, no kernel launched.
+     Then the schedulers, the post-passes and the file loaders: bands
+               (8 rows) and tiles (8x8) with every unit picked each round
+               for 2 rounds, and ``uniform_tile_rounds``, each equal bit
+               for bit to ``progressive.render_step``'s sums of the same
+               samples; rows 1-2 on the band scheduler's rows-mode wave
+               (the 16 bands a greedy round picks, 245,760 rays) and the
+               tile scheduler's pixels-mode wave (4,050 tiles packed
+               tile-major, 259,200 rays), camera, bounce and both shadow
+               waves, each ray at its unit's sample counter, held bit for
+               bit against their plain versions and timed against their
+               bounds, with each wave's launches; ``render_adaptive_tiles``
+               and ``render_adaptive`` at a 4-spp budget (seconds, rounds,
+               spp spent, image gate, rows 1-2 and no other kernel), one
+               greedy tile round profiled, and a tile render with
+               ``target_rmse`` (the 4-spp render's predicted RMSE, twice
+               the budget: where it stops); all five AOVs of the flagship
+               (uv and albedo also of textured_demo), finite in [0, 1];
+               ``denoise_render`` and ``apply_bloom`` of the flagship's
+               4-spp image (seconds, device ms and ops); a 3-frame
+               ``temporal.advance`` orbit at 1 spp a frame (seconds a
+               frame, share of pixels reusing history); each scene of
+               ``examples/`` (five JSON files, two glb files) loaded on
+               the card (host seconds) and rendered for one timed 1-spp
+               step through the route its routing picks.
   5. check   — each image is finite with a plausible mean, and a small
                render of each scene through the kernels agrees with the
                same render through the plain versions: 64x64 for the
@@ -254,6 +278,27 @@ MEDIA_SCENES = ("fog_demo", "smoke_demo", "fire_demo", "sss_demo")
 VOLUME_SCENES = ("smoke_demo", "fire_demo")
 WAVEFRONT_POOL = 1 << 20
 WAVEFRONT_IMAGE_TOL = 1e-5
+# The adaptive schedulers at 1080p with their defaults (models/adaptive.py):
+# bands of 8 rows (135 bands, K = 135 // 8 = 16: 128 rows, a wave of
+# 245,760 rays) and 8x8 tiles (32,400 tiles, K = 4,050: a wave of 259,200
+# rays packed tile-major); budget 4 spp after a 2-spp warmup, 2 spp a
+# picked tile a round. The target_rmse render gets twice the budget and,
+# as its target, the 4-spp tile render's own predicted RMSE.
+BAND_ROWS, TILE = 8, 8
+ADAPTIVE_BUDGET, ADAPTIVE_WARMUP, TILE_SPP_PER_ROUND = 4, 2, 2
+EQUAL_SPP = 2                # samples of the equal-spp identity renders
+TEMPORAL_FRAMES = 3          # 1 spp a frame, 2 degrees of orbit a frame
+BLOOM_STRENGTH = 0.3
+# The repository's example scenes, each loaded on the card and rendered
+# for one timed 1-spp 1080p step through the route its routing picks.
+EXAMPLE_SCENES = ("cornell.json", "motion.json", "outdoor.json",
+                  "showcase.json", "studio.json", "gltf_demo.glb",
+                  "gltf_torture.glb")
+# The launch counters of each traversal route (models/scene.cluster_route).
+ROUTE_COUNTERS = {"flat": ("trace", "occluded"),
+                  "instanced": ("trace_inst", "occluded_inst"),
+                  "paged": ("trace_paged_dnf", "occluded_paged_dnf"),
+                  "tree": ("trace_tree", "occluded_tree")}
 # Profiler ranges put around the attribute resolve and the texture lookups,
 # or around the voxel-grid walks, for a profiled step (``profiler_ranges``).
 RANGE_PREFIX = "ranges:"
@@ -332,13 +377,14 @@ def kill_lanes(t):
     return t
 
 
-def make_waves(scene, camera, config, pix=None, bounce=True):
+def make_waves(scene, camera, config, pix=None, bounce=True, sample=0):
     """A scene's first waves: camera rays, the bounce wave one shading
     step makes of them, and the NEE shadow wave of each (``bounce=False``:
     the camera wave and its shadow wave only). ``pix`` are the pixel ids
     (default: the whole frame less 37, so the ray count is not a multiple
-    of the 128-ray block). Returns {name: (origin, direction, cap)} with
-    every 11th lane dead."""
+    of the 128-ray block); ``sample`` the sample counter, one for the wave
+    or one per ray (the adaptive schedulers' waves). Returns {name:
+    (origin, direction, cap)} with every 11th lane dead."""
     import torch
 
     from pathtracing_tpu_torch.models import scene as scene_mod
@@ -350,7 +396,8 @@ def make_waves(scene, camera, config, pix=None, bounce=True):
         pix = torch.arange(WIDTH * HEIGHT - 37, dtype=torch.int64,
                            device=dev)
     n = pix.shape[0]
-    keys, o0, d0 = shading.camera_sample(camera, config, config.seed, pix, 0)
+    keys, o0, d0 = shading.camera_sample(camera, config, config.seed, pix,
+                                         sample)
     big = torch.full((n,), 3.0e38, device=dev)
     all_live = torch.ones(n, dtype=torch.bool, device=dev)
 
@@ -989,8 +1036,6 @@ def timed_render(label, scene, camera, config, card, kernel_names,
     import torch
 
     from pathtracing_tpu_torch.models import progressive
-    from pathtracing_tpu_torch.ops import cluster_trace as ct
-    from pathtracing_tpu_torch.ops import pgather
 
     step = step_fn(engine)
     state = progressive.init_state(config, device=DEVICE)
@@ -999,8 +1044,7 @@ def timed_render(label, scene, camera, config, card, kernel_names,
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     stats = {}
-    ct.reset_launches()
-    pgather.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     for _ in range(steps):
         state = step(state, scene, camera, config, stats=stats)
@@ -1032,15 +1076,8 @@ def timed_render(label, scene, camera, config, card, kernel_names,
                         kernel_names, ranges=ranges)
     print(f"profile {label} " + json.dumps(prof), flush=True)
     RENDERS[label] = {**info, "profile": prof}
-    if tuple(image.shape) != (HEIGHT, WIDTH, 3):
-        raise SmokeFailure(f"{label}: image shape {tuple(image.shape)}")
-    if not bool(torch.isfinite(image).all()):
-        raise SmokeFailure(f"{label}: image has non-finite values")
-    mean = float(image.mean())
+    mean = image_gate(label, image, min_mean)
     print(f"{label}: image mean {mean:.6f}", flush=True)
-    if not min_mean < mean < 5.0:
-        raise SmokeFailure(f"{label}: image mean {mean} outside "
-                           f"({min_mean}, 5)")
     return image, launches
 
 
@@ -1071,8 +1108,6 @@ def small_render_check(label, scene, plain_scene, cam_cfg, background,
     the render through the kernels (the counts set to 0 just before
     it)."""
     from pathtracing_tpu_torch.models import progressive
-    from pathtracing_tpu_torch.ops import cluster_trace as ct
-    from pathtracing_tpu_torch.ops import pgather
     from pathtracing_tpu_torch.ops.camera import build_camera
     from pathtracing_tpu_torch.utils.config import RenderConfig
 
@@ -1086,8 +1121,7 @@ def small_render_check(label, scene, plain_scene, cam_cfg, background,
                            max_depth=depth, seed=0, traversal=trav,
                            background=background,
                            nee_candidates=nee_candidates)
-        ct.reset_launches()
-        pgather.reset_launches()
+        reset_launches()
         if engine == "wavefront":
             cfg = dataclasses.replace(cfg, samples_per_step=2)
             state = step_fn(engine)(progressive.init_state(cfg, DEVICE), sc,
@@ -1979,6 +2013,372 @@ def binning_ab(tree_scene, camera, config, failures):
 
 
 
+def reset_launches():
+    from pathtracing_tpu_torch.ops import cluster_trace as ct
+    from pathtracing_tpu_torch.ops import pgather
+
+    ct.reset_launches()
+    pgather.reset_launches()
+
+
+def synced_s(fn):
+    """(seconds of ``fn()`` to a synchronized card, its result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def image_gate(label, image, min_mean=0.05, shape=None):
+    """Finite, of the expected shape, with a mean in (min_mean, 5)."""
+    import torch
+
+    shape = (HEIGHT, WIDTH, 3) if shape is None else shape
+    if tuple(image.shape) != shape:
+        raise SmokeFailure(f"{label}: image shape {tuple(image.shape)}")
+    if not bool(torch.isfinite(image).all()):
+        raise SmokeFailure(f"{label}: image has non-finite values")
+    mean = float(image.mean())
+    if not min_mean < mean < 5.0:
+        raise SmokeFailure(f"{label}: image mean {mean} outside "
+                           f"({min_mean}, 5)")
+    return mean
+
+
+def equal_spp_checks(scene, camera, config):
+    """Bands and tiles, every unit picked each round for EQUAL_SPP rounds,
+    and ``uniform_tile_rounds``: each must give ``progressive.render_step``'s
+    sums of the same samples bit for bit (a rows-mode and a pixels-mode wave
+    of the whole frame a sample). Returns the band and tile states (every
+    unit at EQUAL_SPP samples), from which the schedulers' next greedy
+    round picks."""
+    import torch
+
+    from pathtracing_tpu_torch.models import adaptive, progressive
+
+    t = phase("equal-spp identity: bands and tiles against progressive")
+    ref = progressive.init_state(config, device=DEVICE)
+    for _ in range(EQUAL_SPP):
+        ref = progressive.render_step(ref, scene, camera, config)
+    n_bands = HEIGHT // BAND_ROWS
+    n_tiles = (HEIGHT // TILE) * (WIDTH // TILE)
+    bands = adaptive.init_state(config, BAND_ROWS, device=DEVICE)
+    tiles = adaptive.init_tile_state(config, TILE, device=DEVICE)
+    uniform = adaptive.init_tile_state(config, TILE, device=DEVICE)
+    for _ in range(EQUAL_SPP):
+        bands = adaptive.adaptive_step(
+            bands, scene, camera, config, BAND_ROWS,
+            torch.arange(n_bands, device=DEVICE))
+        tiles = adaptive.tile_step(tiles, scene, camera, config, TILE,
+                                   torch.arange(n_tiles, device=DEVICE))
+    uniform = adaptive.uniform_tile_rounds(uniform, scene, camera, config,
+                                           TILE, EQUAL_SPP)
+
+    def untile(st):
+        return st.accum.reshape(HEIGHT // TILE, WIDTH // TILE, TILE, TILE,
+                                3).permute(0, 2, 1, 3, 4).reshape(
+                                    HEIGHT, WIDTH, 3)
+
+    out = {}
+    for label, accum in (("bands", bands.accum), ("tiles", untile(tiles)),
+                         ("uniform_tile_rounds", untile(uniform))):
+        diff = (accum - ref.accum).abs()
+        out[label] = {"equal": bool(torch.equal(accum, ref.accum)),
+                      "max_abs_diff": float(diff.max()),
+                      "pixels_differ": int((diff.amax(-1) > 0).sum())}
+    print("equal spp " + json.dumps({
+        "spp": EQUAL_SPP, "bands": n_bands, "tiles": n_tiles, **out,
+        "seconds": time.perf_counter() - t}), flush=True)
+    for label, res in out.items():
+        if not res["equal"]:
+            raise SmokeFailure(f"equal-spp {label} differ from progressive "
+                               f"on {res['pixels_differ']} pixels")
+    return bands, tiles
+
+
+def scheduler_waves(scene, camera, config, bands, tiles, results, failures):
+    """Rows 1-2 on the schedulers' own waves at 1080p: the K = 16 bands
+    and the K = 4,050 tiles a greedy round picks from ``bands`` and
+    ``tiles`` (every unit at EQUAL_SPP samples), each ray at its unit's
+    sample counter; the camera, bounce and both shadow waves of each,
+    held bit for bit against the plain versions (and the tie contract
+    against ``trace_torch``), timed against their bounds. Each wave's
+    launches come from one scattered render of that wave with the counts
+    set to 0 just before it. Results join ``results`` as
+    "rows:<wave>" and "pixels:<wave>"; returns the launches by mode."""
+    import torch
+
+    from pathtracing_tpu_torch.models import adaptive, megakernel
+
+    t = phase("kernels vs plain: the schedulers' rows and pixels waves")
+    n_bands = HEIGHT // BAND_ROWS
+    n_tiles = (HEIGHT // TILE) * (WIDTH // TILE)
+    k_band, k_tile = max(1, n_bands // 8), max(1, n_tiles // 8)
+    band_ids = adaptive.top_k(adaptive.band_scores(bands, config,
+                                                   BAND_ROWS), k_band)
+    tile_ids = adaptive.top_k(adaptive.tile_scores(tiles, config, TILE),
+                              k_tile)
+    rows = (band_ids[:, None] * BAND_ROWS + torch.arange(
+        BAND_ROWS, device=DEVICE)[None, :]).reshape(-1)
+    row_start = torch.repeat_interleave(
+        bands.band_spp[band_ids].long(), BAND_ROWS)
+    xs = torch.arange(WIDTH, device=DEVICE)
+    pix = adaptive._tile_pixel_ids(tile_ids, config, TILE)
+    pix_start = torch.repeat_interleave(tiles.tile_spp[tile_ids].long(),
+                                        TILE * TILE)
+    modes = {
+        "rows": ((rows[:, None] * WIDTH + xs[None, :]).reshape(-1),
+                 torch.repeat_interleave(row_start, WIDTH),
+                 dict(rows=rows, rows_sample_start=row_start)),
+        "pixels": (pix, pix_start,
+                   dict(pixels=pix, pixels_sample_start=pix_start)),
+    }
+    tk, tp, ok, op, oracle, occ_oracle = flat_fns(scene.clusters)
+    boxes = (scene.clusters.aabb_min, scene.clusters.aabb_max)
+    n_clusters = scene.clusters.woop.shape[0]
+    launches = {}
+    for mode, (wave_pix, wave_sample, kw) in modes.items():
+        reset_launches()
+        megakernel.render_samples(scene, camera, config, 0, 1, config.seed,
+                                  **kw)
+        torch.cuda.synchronize()
+        launches[mode] = {k: v for k, v in launch_counts().items() if v}
+        waves = make_waves(scene, camera, config, pix=wave_pix,
+                           sample=wave_sample)
+        for wname in ("camera", "bounce", "camera_shadow", "bounce_shadow"):
+            if wname.endswith("shadow"):
+                key, kname = "occluded", "occluded_dnf"
+                res = check_occluded(ok, op, waves[wname],
+                                     reference=occ_oracle, boxes=boxes)
+                ray_bytes = 29
+            else:
+                key, kname = "trace", "trace_dnf"
+                res = check_trace(tk, tp, waves[wname], strict=True,
+                                  normal_tol=0.0, reference=oracle,
+                                  boxes=boxes)
+                ray_bytes = 52
+            b_ms, b_by, _, _ = bound_ms(res["needed_evals"], res["rays"],
+                                        n_clusters, ray_bytes)
+            results[key][f"{mode}:{wname}"] = res
+            report(kname, res, failures, wave=f"{mode}:{wname}",
+                   bound_ms=b_ms, bound_by=b_by,
+                   launches_a_wave=launches[mode][key])
+        del waves
+    print(f"scheduler waves: {k_band} bands ({modes['rows'][0].shape[0]} "
+          f"rays), {k_tile} tiles ({pix.shape[0]} rays), launches "
+          f"{json.dumps(launches)} ({time.perf_counter() - t:.2f} s)",
+          flush=True)
+    return launches
+
+
+def adaptive_renders(scene, camera, config, card, flat_names):
+    """The two schedulers' budgeted renders at 1080p (ADAPTIVE_BUDGET spp,
+    ADAPTIVE_WARMUP warmup): seconds, rounds, spp spent, the image gate
+    and the launches, which must be rows 1-2 and no other kernel; one
+    greedy tile round under the profiler; then a tile render with
+    ``target_rmse``. Returns their numbers by label."""
+    from pathtracing_tpu_torch.models import adaptive
+
+    phase("adaptive renders")
+    out = {}
+    n_px = WIDTH * HEIGHT
+    runs = {
+        "tiles": lambda **kw: adaptive.render_adaptive_tiles(
+            scene, camera, config, tile=TILE, warmup_spp=ADAPTIVE_WARMUP,
+            spp_per_round=TILE_SPP_PER_ROUND, **kw),
+        "bands": lambda **kw: adaptive.render_adaptive(
+            scene, camera, config, band_rows=BAND_ROWS,
+            warmup_spp=ADAPTIVE_WARMUP, **kw),
+    }
+    states = {}
+    for label, run_fn in runs.items():
+        reset_launches()
+        secs, (state, rounds) = synced_s(
+            lambda: run_fn(budget_spp=ADAPTIVE_BUDGET))
+        la = launch_counts()
+        check_routes(f"adaptive {label}", la, ("trace", "occluded"))
+        if label == "tiles":
+            img = adaptive.resolve_tiles(state, config, TILE)
+            spent = int(state.tile_spp.sum()) * TILE * TILE
+        else:
+            img = adaptive.resolve(state, BAND_ROWS)
+            spent = int(state.band_spp.sum()) * BAND_ROWS * WIDTH
+        states[label] = state
+        out[label] = {"seconds": secs, "rounds": rounds,
+                      "spp_spent": spent / n_px,
+                      "image_mean": image_gate(f"adaptive {label}", img),
+                      "launches": {k: v for k, v in la.items() if v},
+                      "card": card}
+        print(f"adaptive {label} " + json.dumps(out[label]), flush=True)
+    tiles = states["tiles"]
+    k = max(1, tiles.tile_spp.shape[0] // 8)
+    prof = profile_step(lambda: adaptive.tile_rounds(
+        tiles, scene, camera, config, TILE, k, 1, TILE_SPP_PER_ROUND),
+        flat_names)
+    out["tiles"]["profile_greedy_round"] = prof
+    print("profile adaptive tiles greedy round " + json.dumps(prof),
+          flush=True)
+    target = float(adaptive.predicted_rmse(states["tiles"], config, TILE))
+    log = []
+    reset_launches()
+    secs, (state, rounds) = synced_s(lambda: runs["tiles"](
+        budget_spp=2 * ADAPTIVE_BUDGET, target_rmse=target,
+        progress=lambda st, spent, budget: log.append(spent)))
+    check_routes("adaptive target_rmse", launch_counts(),
+                 ("trace", "occluded"))
+    out["target_rmse"] = {
+        "seconds": secs, "rounds": rounds, "target_rmse": target,
+        "predicted_rmse_at_stop": float(adaptive.predicted_rmse(
+            state, config, TILE)),
+        "spp_spent": int(state.tile_spp.sum()) * TILE * TILE / n_px,
+        "budget_spp": 2 * ADAPTIVE_BUDGET, "groups": len(log),
+        "image_mean": image_gate("adaptive target_rmse",
+                                 adaptive.resolve_tiles(state, config,
+                                                        TILE)),
+        "card": card}
+    print("adaptive target_rmse " + json.dumps(out["target_rmse"]),
+          flush=True)
+    return out
+
+
+def post_passes(scene, camera, cam_cfg, config, card, flag_img, textured):
+    """The post-passes at 1080p: all five AOVs of the flagship (uv and
+    albedo also of ``textured``, (scene, camera)), each finite and in
+    [0, 1]; ``denoise_render`` and ``apply_bloom`` of the flagship's
+    image (TIMED_STEPS + 1 spp): seconds, then device ms and device ops
+    of a profiled run; a TEMPORAL_FRAMES-frame orbit through
+    ``temporal.advance`` at 1 spp a frame: seconds a frame and the share
+    of pixels that reused history. Returns the numbers."""
+    import torch
+
+    import numpy as np
+
+    from pathtracing_tpu_torch.models import aov, megakernel, temporal
+    from pathtracing_tpu_torch.ops import bloom, denoise
+    from pathtracing_tpu_torch.ops.camera import build_camera
+
+    phase("post-passes: AOVs, denoiser, bloom, temporal")
+    out = {"aov": {}}
+    cases = [("flagship", scene, camera, kind) for kind in aov.AOV_KINDS]
+    cases += [("textured_demo", *textured, kind) for kind in ("uv",
+                                                             "albedo")]
+    for label, sc, cam, kind in cases:
+        secs, img = synced_s(lambda: aov.render_aov(sc, cam, config, kind))
+        ok = (bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0
+              and float(img.max()) <= 1.0
+              and tuple(img.shape) == (HEIGHT, WIDTH, 3))
+        out["aov"][f"{label}:{kind}"] = {"seconds": secs,
+                                         "mean": float(img.mean())}
+        if not ok:
+            raise SmokeFailure(f"AOV {kind} of {label} is not finite in "
+                               "[0, 1]")
+    print("aov " + json.dumps(out["aov"]), flush=True)
+    spp = TIMED_STEPS + 1
+    for label, fn in (
+            ("denoise_render", lambda: denoise.denoise_render(
+                scene, camera, config, flag_img, spp=spp)),
+            ("apply_bloom", lambda: bloom.apply_bloom(flag_img,
+                                                      BLOOM_STRENGTH))):
+        secs, img = synced_s(fn)
+        image_gate(label, img)
+        prof = profile_step(fn, ())
+        out[label] = {"seconds": secs, "device_ms": prof["device_ms"],
+                      "device_ops": prof.get("device_ops"),
+                      "busy_share": prof.get("busy_share"),
+                      "image_mean": float(img.mean()), "card": card}
+        print(f"{label} " + json.dumps(out[label]), flush=True)
+    # A small orbit about the look-at point, 2 degrees a frame.
+    base = np.asarray(cam_cfg.position, np.float32)
+    target = np.asarray(cam_cfg.look_at, np.float32)
+    rel = base - target
+    r_xz = float(np.hypot(rel[0], rel[2]))
+    phi0 = float(np.arctan2(rel[0], rel[2]))
+    state = temporal.init_state(config, device=DEVICE)
+    prev = None
+    frames = []
+    for i in range(TEMPORAL_FRAMES):
+        phi = phi0 + np.radians(2.0) * i
+        pos = target + np.array([r_xz * np.sin(phi), rel[1],
+                                 r_xz * np.cos(phi)], np.float32)
+        cam = build_camera(dataclasses.replace(
+            cam_cfg, position=tuple(map(float, pos))), WIDTH / HEIGHT,
+            device=DEVICE)
+
+        def frame():
+            cur = megakernel.render_samples(scene, cam, config, i, 1,
+                                            config.seed)
+            return temporal.advance(state, cur, scene, cam,
+                                    cam if prev is None else prev, config)
+
+        secs, (img, state) = synced_s(frame)
+        image_gate(f"temporal frame {i}", img)
+        frames.append({"seconds": secs, "accepted_share": float(
+            (state.hist_len > 1.0).float().mean())})
+        prev = cam
+    out["temporal"] = {"frames": frames, "card": card}
+    print("temporal " + json.dumps(out["temporal"]), flush=True)
+    if frames[-1]["accepted_share"] < 0.5:
+        raise SmokeFailure("the temporal orbit reused history on less than "
+                           "half the pixels")
+    return out
+
+
+def example_scenes(card):
+    """Each scene of the repository's examples/ loaded on the card (host
+    seconds), then one timed 1-spp 1080p step (no profile) through the
+    route its routing picks, with the launch counts set to 0 just before
+    it; the image gate. Returns the numbers by file."""
+    import torch
+
+    from pathtracing_tpu_torch.models import gltf, progressive, scene_io
+    from pathtracing_tpu_torch.models import scene as scene_mod
+    from pathtracing_tpu_torch.ops.camera import build_camera
+    from pathtracing_tpu_torch.utils.config import RenderConfig
+
+    t = phase("example scenes (file loaders)")
+    out = {}
+    for name in EXAMPLE_SCENES:
+        path = os.path.join(ROOT, "examples", name)
+        load_s, (sc, cc) = synced_s(
+            lambda: (scene_io.load_scene(path, device=DEVICE)
+                     if name.endswith(".json")
+                     else gltf.load_gltf(path, device=DEVICE)))
+        bg = (scene_io.preferred_background(path) if name.endswith(".json")
+              else "black")
+        pair = cc.motion_pair()
+        cam = (build_camera(cc, WIDTH / HEIGHT, device=DEVICE) if pair is None
+               else tuple(build_camera(c, WIDTH / HEIGHT, device=DEVICE)
+                          for c in pair))
+        cfg = RenderConfig(width=WIDTH, height=HEIGHT, samples_per_pixel=1,
+                           max_depth=DEPTH, samples_per_step=1, seed=0,
+                           nee=True, sampler="ld", background=bg)
+        route = scene_mod.cluster_route(sc)
+        state = progressive.init_state(cfg, device=DEVICE)
+        stats = {}
+        reset_launches()
+        step_s, state = synced_s(lambda: progressive.render_step(
+            state, sc, cam, cfg, stats=stats))
+        la = launch_counts()
+        check_routes(f"example {name}", la, ROUTE_COUNTERS[route],
+                     optional=("gather_rows",))
+        segments = int(stats["segments"]) + int(stats["shadow_segments"])
+        out[name] = {
+            "load_s": load_s, "step_s": step_s, "route": route,
+            "triangles": int(sc.tri_v0.shape[0]),
+            "mrays_per_s": segments / step_s / 1e6,
+            "image_mean": image_gate(f"example {name}",
+                                     progressive.resolve(state)),
+            "launches": {k: v for k, v in la.items() if v}, "card": card}
+        print(f"example {name} " + json.dumps(out[name]), flush=True)
+        del sc, state
+        torch.cuda.empty_cache()
+    print(f"example scenes: {time.perf_counter() - t:.2f} s", flush=True)
+    return out
+
+
 def run() -> dict:
     import torch
 
@@ -2294,6 +2694,24 @@ def run() -> dict:
     if failures:
         raise SmokeFailure("; ".join(failures))
 
+    # The schedulers and post-passes (item 17) and the file loaders (item
+    # 18), each phase with its seconds.
+    t = time.perf_counter()
+    bands, tiles = equal_spp_checks(scene, camera, config)
+    sched_launches = scheduler_waves(scene, camera, config, bands, tiles,
+                                     results, failures)
+    del bands, tiles
+    if failures:
+        raise SmokeFailure("kernel disagrees with its plain version: "
+                           + "; ".join(failures))
+    adaptive_res = adaptive_renders(scene, camera, config, card, flat_names)
+    post_res = post_passes(scene, camera, cam_cfg, config, card, flag_img,
+                           (attr["textured_demo"][0],
+                            attr_cams["textured_demo"]))
+    examples = example_scenes(card)
+    print(f"schedulers, post-passes and example scenes: "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+
     phase("check")
     for name in NEW_SCENES:
         sc, cc = new[name]
@@ -2458,11 +2876,23 @@ def run() -> dict:
         if entry["name"] in ("trace_dnf", "occluded_dnf"):
             entry["wavefront_vs_megakernel"] = {
                 k: v for k, v in wave.items() if k != "launches"}
+            key = counter[entry["name"]]
+            entry["launches_scheduler_wave"] = {
+                mode: la[key] for mode, la in sched_launches.items()}
+            entry["launches_adaptive_render"] = {
+                label: res["launches"].get(key, 0)
+                for label, res in adaptive_res.items() if "launches" in res}
+            entry["launches_example_scenes"] = {
+                name: res["launches"].get(key, 0)
+                for name, res in examples.items()
+                if res["launches"].get(key)}
     for entry in kernels:
         entry["ptxas"] = {k: v for k, v in ptxas.items()
                           if k.split("<")[0] == entry["kernel"]}
         if not entry["ptxas"]:
             raise SmokeFailure(f"no ptxas -v report for {entry['kernel']}")
+    print("post-passes " + json.dumps({k: v for k, v in post_res.items()
+                                       if k != "aov"}), flush=True)
     print("bench " + json.dumps(bench), flush=True)
     print("bench wavefront " + json.dumps(bench_wave), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

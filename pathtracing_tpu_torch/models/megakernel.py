@@ -14,9 +14,10 @@ tree takes each query's rays in (cell, octant) bins. A moving camera is
 an ``(open, close)`` pair traced at each path's shutter time, the draw
 that object motion uses.
 Pixel and sample ids are global, so any chunking of the rows gives the
-same per-pixel results bit for bit. The scattered-rows and
-scattered-pixels modes of the JAX engine (the adaptive schedulers' waves)
-are not ported yet (ROADMAP queue A item 17).
+same per-pixel results bit for bit. Besides contiguous row blocks it
+renders the adaptive schedulers' waves: scattered image rows, each at its
+own sample counter (``rows=``), and scattered pixels (``pixels=``); a
+pixel's k-th sample is the same in every mode.
 """
 
 from __future__ import annotations
@@ -41,30 +42,55 @@ MAX_WAVE_RAYS = 1 << 21
 COMPACT_DEPTHS = (3,)
 
 
-def _chunking(block_rows: int, w: int):
-    """(chunk_rows, n_chunks): the largest divisor of ``block_rows`` whose
-    wave fits MAX_WAVE_RAYS, or ceil-splitting at the cap (padded last
-    chunk) when no divisor reaches half the cap — the JAX rule."""
-    if block_rows * w <= MAX_WAVE_RAYS:
-        return block_rows, 1
-    cap = max(1, MAX_WAVE_RAYS // w)
-    divisor = max(c for c in range(1, cap + 1) if block_rows % c == 0)
-    chunk_rows = divisor if 2 * divisor >= cap else cap
-    return chunk_rows, -(-block_rows // chunk_rows)
+def _chunking(n_units: int, unit_rays: int):
+    """(chunk_units, n_chunks) for a wave of ``n_units`` units of
+    ``unit_rays`` rays (image rows of W pixels, or single pixels): the
+    largest divisor of ``n_units`` whose wave fits MAX_WAVE_RAYS, or
+    ceil-splitting at the cap (padded last chunk) when no divisor reaches
+    half the cap — the JAX rule."""
+    if n_units * unit_rays <= MAX_WAVE_RAYS:
+        return n_units, 1
+    cap = max(1, MAX_WAVE_RAYS // unit_rays)
+    divisor = max(c for c in range(1, cap + 1) if n_units % c == 0)
+    chunk = divisor if 2 * divisor >= cap else cap
+    return chunk, -(-n_units // chunk)
 
 
-def render_samples(scene, camera, config: RenderConfig, sample_start: int,
+def render_samples(scene, camera, config: RenderConfig, sample_start,
                    n_samples: int, seed: int, row_start: int = 0,
-                   block_rows=None, stats=None):
+                   block_rows=None, stats=None, sample_stride: int = 1,
+                   rows=None, rows_sample_start=None, pixels=None,
+                   pixels_sample_start=None):
     """Sum of ``n_samples`` radiance samples per pixel over rows
     [row_start, row_start + block_rows) (default the whole image):
     (block_rows, W, 3) float32.
 
-    ``sample_start`` is the global sample counter, so progressive steps
-    continue the exact RNG sequence; sample ``i`` of this call is global
-    sample ``sample_start + i``. ``stats`` (optional dict)
-    accumulates ``segments`` (rays entering each bounce's closest-hit
-    query) and ``shadow_segments`` (NEE shadow rays) as device tensors."""
+    ``sample_start`` (an int, or a 0-d integer tensor) is the global
+    sample counter, so progressive steps continue the exact RNG sequence;
+    sample ``i`` of this call is global sample ``sample_start +
+    i * sample_stride`` (a stride lets several renders split the samples
+    of one image). ``stats`` (optional dict) accumulates ``segments``
+    (rays entering each bounce's closest-hit query) and
+    ``shadow_segments`` (NEE shadow rays) as device tensors.
+
+    Scattered-rows mode: ``rows`` ((R,) integer tensor) names image rows
+    and ``rows_sample_start`` ((R,)) gives each row its own sample
+    counter; returns (R, W, 3) in ``rows`` order. Scattered-pixels mode:
+    ``pixels`` ((R,)) names global pixel ids with per-pixel counters
+    ``pixels_sample_start``; returns (R, 3). ``sample_start``,
+    ``row_start`` and ``block_rows`` are unused in these modes."""
+    if pixels is not None:
+        if pixels_sample_start is None:
+            raise ValueError("pixels mode needs pixels_sample_start")
+        return _render_scattered(scene, camera, config, pixels.long(),
+                                 pixels_sample_start.long(), 1, n_samples,
+                                 seed, sample_stride, stats)
+    if rows is not None:
+        if rows_sample_start is None:
+            raise ValueError("rows mode needs rows_sample_start")
+        return _render_scattered(scene, camera, config, rows.long(),
+                                 rows_sample_start.long(), config.width,
+                                 n_samples, seed, sample_stride, stats)
     h, w = config.height, config.width
     block_rows = h if block_rows is None else block_rows
     chunk_rows, n_chunks = _chunking(block_rows, w)
@@ -76,7 +102,7 @@ def render_samples(scene, camera, config: RenderConfig, sample_start: int,
     accum = torch.zeros((block_rows, w, 3), dtype=torch.float32,
                         device=device)
     for sample_ofs in range(n_samples):
-        sample_idx = sample_start + sample_ofs
+        sample_idx = sample_start + sample_ofs * sample_stride
         for ci in range(n_chunks):
             r0 = ci * chunk_rows
             pixel_index = ((ys + row_start + r0) * w + xs).reshape(-1)
@@ -91,13 +117,54 @@ def render_samples(scene, camera, config: RenderConfig, sample_start: int,
     return accum
 
 
+def _render_scattered(scene, camera, config: RenderConfig, units,
+                      unit_sample_start, width: int, n_samples: int,
+                      seed: int, sample_stride: int, stats):
+    """The scattered modes: ``units`` are image rows (``width`` = W) or
+    global pixel ids (``width`` = 1), each at its own sample counter.
+    Waves chunk at MAX_WAVE_RAYS as in block mode; a short tail chunk is
+    padded with unit 0 at sample 0 and the padded results are dropped, so
+    every wave of one call has the same shape. Returns (R, W, 3) for rows,
+    (R, 3) for pixels."""
+    n_units = units.shape[0]
+    chunk, n_chunks = _chunking(n_units, width)
+    pad = n_chunks * chunk - n_units
+    if pad:
+        zeros = torch.zeros(pad, dtype=torch.int64, device=units.device)
+        units = torch.cat([units, zeros])
+        unit_sample_start = torch.cat([unit_sample_start, zeros])
+    traversal = config.resolve_traversal(scene)
+    xs = torch.arange(width, dtype=torch.int64, device=units.device)
+    accum = torch.zeros((n_units, width, 3), dtype=torch.float32,
+                        device=units.device)
+    for sample_ofs in range(n_samples):
+        for ci in range(n_chunks):
+            u0 = ci * chunk
+            unit = units[u0:u0 + chunk]
+            pixel_index = (unit[:, None] * width + xs[None, :]).reshape(-1)
+            sample_idx = torch.repeat_interleave(
+                unit_sample_start[u0:u0 + chunk]
+                + sample_ofs * sample_stride, width)
+            radiance = _trace_pixels(scene, camera, config, traversal,
+                                     pixel_index, sample_idx, seed, stats)
+            radiance = radiance.reshape(chunk, width, 3)
+            if config.clamp > 0.0:
+                radiance = torch.clamp(radiance, max=config.clamp)
+            n = min(chunk, n_units - u0)
+            accum[u0:u0 + n] += radiance[:n]
+    return accum[:, 0] if width == 1 else accum
+
+
 # Per-path shutter time for object and camera motion (one shared draw).
 shutter_times = shading.shutter_time
 
 
 def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
-                  pixel_index, sample_idx: int, seed: int, stats=None):
-    """Per-path radiance ((R, 3)) for one wave of global pixel ids."""
+                  pixel_index, sample_idx, seed: int, stats=None):
+    """Per-path radiance ((R, 3)) for one wave of global pixel ids.
+    ``sample_idx`` is one sample counter for the whole wave (an int or a
+    0-d tensor) or an (R,) tensor, each ray at its own counter; both draw
+    the same per-(pixel, sample) streams."""
     keys, origin, direction = shading.camera_sample(
         camera, config, seed, pixel_index, sample_idx
     )

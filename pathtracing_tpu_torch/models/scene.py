@@ -386,15 +386,13 @@ class SceneBuilder:
         self._mipmaps = bool(enabled)
 
     def add_texture(self, image, srgb: bool = True) -> int:
-        """Register an (H, W, 3) linear float image; returns the texture id
-        to pass as a material's ``texture=`` (or ``normal_map=``,
-        ``mr_texture=``). Image files are not ported yet (ROADMAP queue A
-        item 18): ``srgb`` only matters for them."""
+        """Register a texture: an (H, W, 3) linear float image, or a path
+        (PNG/JPEG converted from sRGB unless ``srgb=False``, as for normal
+        maps; .hdr and .npy load as they are). Returns the texture id to
+        pass as a material's ``texture=`` (or ``normal_map=``,
+        ``mr_texture=``)."""
         if isinstance(image, (str, os.PathLike)):
-            raise NotImplementedError(
-                "loading a texture from a file is not ported yet (ROADMAP "
-                "queue A item 18); pass an (H, W, 3) array"
-            )
+            image = texture_ops.load_texture(os.fspath(image), srgb=srgb)
         self._tex.append(np.asarray(image, np.float32))
         return len(self._tex) - 1
 

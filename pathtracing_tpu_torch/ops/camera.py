@@ -6,7 +6,9 @@ generation.
 ``build_camera`` runs on the host in numpy, as the JAX package's does, and
 uploads the frame to the device; ``generate_ray`` is a batched function
 of film coordinates. A moving camera is an ``(open, close)`` pair of
-cameras; ``lerp`` blends them at a per-ray shutter time.
+cameras; ``lerp`` blends them at a per-ray shutter time. ``project``
+inverts ``generate_ray`` for the lens-centre ray and ``cam_depth`` gives
+a point's depth for the temporal reprojection.
 """
 
 from __future__ import annotations
@@ -188,6 +190,56 @@ def generate_ray(camera: Camera, s, t, lens_u1, lens_u2):
                      - (sin_t * torch.cos(lam))[..., None] * camera.w)
         origin = camera.origin.expand(direction.shape)
         return origin, linalg.normalize(direction)
+    raise ValueError(f"unknown camera projection {proj!r}")
+
+
+def cam_depth(camera: Camera, p):
+    """Scalar occlusion-compare depth of world points ``p`` (..., 3): the
+    z-depth along the view axis for the planar projections (pinhole,
+    ortho), the radial distance for the angular ones (fisheye,
+    equirect)."""
+    rel = p - camera.origin
+    if camera.projection in ("pinhole", "ortho"):
+        return linalg.dot(rel, -camera.w)
+    return torch.sqrt(torch.clamp((rel * rel).sum(-1), min=1e-20))
+
+
+def project(camera: Camera, p):
+    """Inverse of ``generate_ray`` for the lens-centre ray: world points
+    ``p`` (..., 3) -> film coordinates (s, t) and a validity mask (in
+    front of the camera, or inside the angular range). The lens is
+    ignored: reprojection wants the sharp pinhole mapping. Where the
+    previous frame saw a world point (``models.temporal``)."""
+    rel = p - camera.origin
+    x = linalg.dot(rel, camera.u)
+    y = linalg.dot(rel, camera.v)
+    z = linalg.dot(rel, -camera.w)
+    proj = camera.projection
+    if proj in ("pinhole", "ortho"):
+        hw = torch.sqrt((camera.horizontal ** 2).sum())
+        hv = torch.sqrt((camera.vertical ** 2).sum())
+        if proj == "ortho":
+            return 0.5 + x / hw, 0.5 + y / hv, z > 1e-6
+        focus = linalg.dot(camera.origin - camera.lower_left, camera.w)
+        valid = z > 1e-6
+        zs = torch.where(valid, z, 1.0)
+        return (0.5 + focus * x / (zs * hw), 0.5 + focus * y / (zs * hv),
+                valid)
+    rn = torch.sqrt(torch.clamp((rel * rel).sum(-1), min=1e-20))
+    if proj == "fisheye":
+        theta = torch.acos(torch.clamp(z / rn, -1.0, 1.0))
+        r_ndc = theta / camera.half_fov
+        phi = torch.atan2(y, torch.where(x.abs() + y.abs() > 0.0, x, 1.0))
+        s = 0.5 * (r_ndc * torch.cos(phi) / camera.aspect + 1.0)
+        t = 0.5 * (r_ndc * torch.sin(phi) + 1.0)
+        # On-film is the caller's (s, t) in [0, 1] test; only the exact
+        # backward pole (phi undefined, r saturated) is invalid here.
+        return s, t, theta < float(np.float32(np.pi * 0.999))
+    if proj == "equirect":
+        theta = torch.acos(torch.clamp(y / rn, -1.0, 1.0))
+        # Azimuth about v measured from -w, over the full circle.
+        lam = torch.atan2(x, z)
+        return lam / _TWO_PI + 0.5, 1.0 - theta / _PI, rn > 1e-6
     raise ValueError(f"unknown camera projection {proj!r}")
 
 

@@ -15,16 +15,21 @@ Direction convention: +Y is up. ``v ∈ [0, 1]`` maps to the polar angle
 ``θ = vπ`` from +Y, ``u ∈ [0, 1)`` to the azimuth ``φ = (u − 0.5)·2π``,
 with ``d = (sinθ·cosφ, cosθ, sinθ·sinφ)``.
 
-The HDR file readers and writers (``load_hdr``, ``write_hdr``,
-``load_environment``) are not ported yet (ROADMAP queue A item 18).
+Radiance ``.hdr`` files (Ward's RGBE, flat and adaptive-RLE scanlines)
+are read and written in numpy on the host (``load_hdr``, ``write_hdr``);
+``load_environment`` builds a map from a scene file's ``environment``
+entry.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import os
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from pathtracing_tpu_torch.utils.config import resolve_device
 
 _TWO_PI = 2.0 * np.pi
 _INV_4PI = 1.0 / (4.0 * np.pi)
@@ -213,3 +218,138 @@ def sky_texels(width: int = 256, height: int = 128,
     )
     img = img + disc[..., None] * np.asarray(sun_radiance)
     return img.astype(np.float32)
+
+
+# --- Radiance .hdr (RGBE) IO -------------------------------------------
+#
+# Minimal self-contained reader/writer for the Radiance picture format
+# (Ward's RGBE encoding): enough to load standard equirect HDR probes
+# (both flat and adaptive-RLE scanlines) and to round-trip our own.
+
+
+def _rgbe_encode(img: np.ndarray) -> np.ndarray:
+    maxc = img.max(axis=-1)
+    valid = maxc >= 1e-32
+    m, e = np.frexp(np.maximum(maxc, 1e-32))
+    exp = np.where(valid, e, 0)
+    mant = np.where(valid, m, 0.0)
+    scale = mant * 256.0 / np.maximum(maxc, 1e-32)
+    rgbe = np.zeros(img.shape[:-1] + (4,), np.uint8)
+    rgbe[..., :3] = np.clip(img * scale[..., None], 0, 255).astype(np.uint8)
+    rgbe[..., 3] = np.where(valid, exp + 128, 0).astype(np.uint8)
+    return rgbe
+
+
+def _rgbe_decode(rgbe: np.ndarray) -> np.ndarray:
+    exp = rgbe[..., 3].astype(np.int32)
+    scale = np.where(
+        exp > 0, np.ldexp(1.0, exp - 136).astype(np.float32), 0.0
+    )
+    # +0.5 mantissa centering (Ward's convention): halves the
+    # truncation error of the 8-bit mantissa.
+    return (rgbe[..., :3].astype(np.float32) + 0.5) * scale[..., None]
+
+
+def write_hdr(path: str, img) -> None:
+    """Write (H, W, 3) linear radiance as a flat-scanline .hdr file."""
+    img = np.asarray(img, np.float32)
+    h, w, _ = img.shape
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {h} +X {w}\n".encode())
+        f.write(_rgbe_encode(img).tobytes())
+
+
+def load_hdr(path: str) -> np.ndarray:
+    """Read a Radiance .hdr file → (H, W, 3) f32 linear radiance."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not (data.startswith(b"#?RADIANCE") or data.startswith(b"#?RGBE")):
+        raise ValueError(f"{path}: not a Radiance HDR file")
+    pos = data.index(b"\n\n") + 2
+    eol = data.index(b"\n", pos)
+    dims = data[pos:eol].split()
+    if len(dims) != 4 or dims[0] != b"-Y" or dims[2] != b"+X":
+        raise ValueError(f"{path}: unsupported orientation {dims}")
+    h, w = int(dims[1]), int(dims[3])
+    body = np.frombuffer(data, np.uint8, offset=eol + 1)
+
+    # Flat scanlines?
+    if body.size == h * w * 4:
+        first = body[:4]
+        if not (first[0] == 2 and first[1] == 2 and
+                (int(first[2]) << 8 | int(first[3])) == w):
+            return _rgbe_decode(body.reshape(h, w, 4))
+    # Adaptive RLE scanlines (each starts 0x02 0x02 w_hi w_lo).
+    out = np.empty((h, w, 4), np.uint8)
+    p = 0
+    for row in range(h):
+        if p + 4 > body.size:
+            raise ValueError(f"{path}: truncated at scanline {row}")
+        hdr4 = body[p:p + 4]
+        if not (hdr4[0] == 2 and hdr4[1] == 2):
+            # Old-style flat remainder.
+            rest = body[p:]
+            need = (h - row) * w * 4
+            if rest.size < need:
+                raise ValueError(f"{path}: truncated flat data")
+            out[row:] = rest[:need].reshape(h - row, w, 4)
+            return _rgbe_decode(out)
+        if (int(hdr4[2]) << 8 | int(hdr4[3])) != w:
+            raise ValueError(f"{path}: scanline width mismatch")
+        p += 4
+        for c in range(4):
+            col = 0
+            while col < w:
+                n = int(body[p])
+                if n > 128:  # run
+                    out[row, col:col + n - 128, c] = body[p + 1]
+                    col += n - 128
+                    p += 2
+                else:        # literal
+                    out[row, col:col + n, c] = body[p + 1:p + 1 + n]
+                    col += n
+                    p += 1 + n
+    return _rgbe_decode(out)
+
+
+def environment_texels(spec, base_dir: str = ".") -> np.ndarray:
+    """The (H, W, 3) radiance grid of a scene file's ``environment`` entry,
+    one of:
+
+      {"image": "probe.hdr", "scale": 1.0, "rotate_degrees": 0}
+      {"sky": {...sky_texels kwargs...}}
+      {"uniform": [r, g, b], "resolution": [h, w]}
+
+    A relative image path resolves against ``base_dir``."""
+    scale = float(spec.get("scale", 1.0))
+    if "image" in spec:
+        path = spec["image"]
+        if not os.path.isabs(path):
+            path = os.path.join(base_dir, path)
+        tx = load_hdr(path) * scale
+    elif "sky" in spec:
+        tx = sky_texels(**spec["sky"]) * scale
+    elif "uniform" in spec:
+        h, w = spec.get("resolution", (16, 32))
+        tx = np.broadcast_to(
+            np.asarray(spec["uniform"], np.float32), (int(h), int(w), 3)
+        ).copy() * scale
+    else:
+        raise ValueError(f"unknown environment spec: {spec}")
+    rot = float(spec.get("rotate_degrees", 0.0))
+    if rot:
+        shift = int(round(rot / 360.0 * tx.shape[1])) % tx.shape[1]
+        tx = np.roll(tx, shift, axis=1)
+    return tx
+
+
+def load_environment(spec, base_dir: str = ".",
+                     device=None) -> Optional[EnvMap]:
+    """An EnvMap on ``device`` (the card unless the caller asks for another
+    device) from a scene file's ``environment`` entry
+    (``environment_texels``); None for None."""
+    if spec is None:
+        return None
+    return build_envmap(environment_texels(spec, base_dir),
+                        resolve_device(device))

@@ -13,16 +13,19 @@ Conventions (as in the JAX package):
     half a texel reads column -1, which wraps to the last column.
   * Texels are linear; the sampled color MODULATES a material's albedo.
 
-Image files (``load_texture``: PNG/JPEG through Pillow, ``.hdr``) are not
-ported yet (ROADMAP queue A item 18); scenes pass arrays.
+Image files load on the host (``load_texture``: PNG/JPEG through Pillow,
+converted from sRGB; ``.hdr`` and ``.npy`` linear).
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, NamedTuple, Sequence
 
 import numpy as np
 import torch
+
+from pathtracing_tpu_torch.ops import envmap
 
 
 class TextureAtlas(NamedTuple):
@@ -210,3 +213,20 @@ def srgb_to_linear(img: np.ndarray) -> np.ndarray:
     lo = img / 12.92
     hi = np.power((img + 0.055) / 1.055, 2.4, dtype=np.float32)
     return np.where(img <= 0.04045, lo, hi).astype(np.float32)
+
+
+def load_texture(path: str, srgb: bool = True) -> np.ndarray:
+    """An image file as a linear (H, W, 3) f32 texture: ``.hdr`` (Radiance
+    RGBE) and ``.npy`` are linear already; 8-bit formats (PNG, JPEG, via
+    Pillow) convert from sRGB unless ``srgb=False`` (normal maps hold
+    direction data, not colour)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".hdr":
+        return envmap.load_hdr(path)
+    if ext == ".npy":
+        return np.asarray(np.load(path), np.float32)
+    from PIL import Image
+
+    with Image.open(path) as im:
+        arr = np.asarray(im.convert("RGB"), np.float32) / 255.0
+    return srgb_to_linear(arr) if srgb else arr

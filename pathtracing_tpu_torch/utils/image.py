@@ -1,6 +1,7 @@
-"""Tonemapping and PNG output (the JAX package's ``utils/image.py``): a
-device-side tonemap to uint8 sRGB, one device→host copy, and a stdlib
-(zlib + struct) PNG encoder."""
+"""Tonemapping and image output (the JAX package's ``utils/image.py``): a
+device-side tonemap to uint8 sRGB, one device→host copy, a stdlib
+(zlib + struct) PNG encoder and decoder, and a writer that picks the
+format by extension (PNG, PPM, linear Radiance ``.hdr`` or OpenEXR)."""
 
 from __future__ import annotations
 
@@ -101,3 +102,81 @@ def write_png(path: str, linear_rgb, exposure=1.0,
     rgb8 = tonemap(linear_rgb, exposure, curve).cpu().numpy()
     with open(path, "wb") as f:
         f.write(encode_png(rgb8))
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """Minimal decoder for images made by ``encode_png``: 8-bit RGB, filter
+    0 scanlines. Returns (H, W, 3) uint8."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG stream")
+    pos = 8
+    w = h = None
+    idat = b""
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        payload = data[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            w, h, depth, color, *_ = struct.unpack(">IIBBBBB", payload)
+            if depth != 8 or color != 2:
+                raise ValueError("decode_png supports RGB8 only")
+        elif tag == b"IDAT":
+            idat += payload
+        pos += 12 + length
+    raw = zlib.decompress(idat)
+    stride = w * 3 + 1
+    rows = []
+    for y in range(h):
+        row = raw[y * stride:(y + 1) * stride]
+        if row[0] != 0:
+            raise ValueError("decode_png supports filter 0 only")
+        rows.append(np.frombuffer(row[1:], np.uint8))
+    return np.stack(rows).reshape(h, w, 3)
+
+
+def _host(linear_rgb) -> np.ndarray:
+    if isinstance(linear_rgb, torch.Tensor):
+        return linear_rgb.detach().cpu().numpy()
+    return np.asarray(linear_rgb)
+
+
+def _tensor(linear_rgb) -> torch.Tensor:
+    if isinstance(linear_rgb, torch.Tensor):
+        return linear_rgb
+    return torch.as_tensor(np.asarray(linear_rgb, np.float32))
+
+
+def write_image(path: str, linear_rgb, exposure=1.0,
+                curve: str = "clip") -> None:
+    """Write by extension: ``.hdr`` linear Radiance RGBE (exposure applied,
+    no tone curve), ``.exr`` linear float32 OpenEXR, ``.ppm`` a plain
+    raster, anything else a tonemapped PNG."""
+    low = path.lower()
+    if low.endswith(".hdr"):
+        from pathtracing_tpu_torch.ops.envmap import write_hdr
+
+        write_hdr(path, _host(linear_rgb)[..., :3] * float(exposure))
+    elif low.endswith(".exr"):
+        from pathtracing_tpu_torch.utils.exr import write_exr
+
+        write_exr(path, _host(linear_rgb)[..., :3] * float(exposure))
+    elif low.endswith(".ppm"):
+        write_ppm(path, linear_rgb)
+    else:
+        write_png(path, _tensor(linear_rgb), exposure, curve)
+
+
+def write_ppm(path: str, linear_rgb) -> None:
+    """Plain PPM (P6): the zero-dependency raster."""
+    rgb8 = tonemap(_tensor(linear_rgb)).cpu().numpy()
+    h, w, _ = rgb8.shape
+    with open(path, "wb") as f:
+        f.write(f"P6\n{w} {h}\n255\n".encode())
+        f.write(rgb8.tobytes())
+
+
+def rmse(a, b) -> float:
+    """Per-pixel RMSE between two linear images, in float64."""
+    a = np.asarray(_host(a), np.float64)
+    b = np.asarray(_host(b), np.float64)
+    return float(np.sqrt(np.mean((a - b) ** 2)))

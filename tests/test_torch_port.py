@@ -409,12 +409,14 @@ def _open_roadmap_items():
 
 def test_not_implemented_messages_name_an_open_item():
     """Every ``NotImplementedError`` the port raises names the ROADMAP
-    queue-A item that ports it, and that item is still open. Items 13 and
-    16 (the wavefront engine and the media) are done: no message names
-    them, and the tables of unported scene fields and scenes are gone."""
+    queue-A item that ports it, and that item is still open. Items 17 and
+    18 (the schedulers and post-passes, the file I/O) are done: no
+    message names them (none may be left), the app shell (21) and
+    ``parallel/`` (19) are open, and the tables of unported scene fields
+    and scenes are gone."""
     open_items = _open_roadmap_items()
-    assert {17, 18} <= open_items
-    assert not {10, 11, 12, 13, 16, 20} & open_items
+    assert {19, 21} <= open_items
+    assert not {10, 11, 12, 13, 16, 17, 18, 20} & open_items
     assert not hasattr(scene_mod, "_UNPORTED_FIELDS")
     assert not hasattr(scenes, "UNPORTED_SCENES")
     raises = []
@@ -432,7 +434,6 @@ def test_not_implemented_messages_name_an_open_item():
                                if isinstance(c, ast.Constant)
                                and isinstance(c.value, str))
                 raises.append((f"{path}:{node.lineno}", text))
-    assert raises
     for where, text in raises:
         assert "queue A" in text, where
         items = {int(n) for n in re.findall(r"item (\d+)", text)}
