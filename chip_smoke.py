@@ -152,6 +152,35 @@ Phases, in order; any failure exits non-zero:
                ``examples/`` (five JSON files, two glb files) loaded on
                the card (host seconds) and rendered for one timed 1-spp
                step through the route its routing picks.
+     Then the app shell and ``parallel/``, each phase with its seconds:
+               ``render.main`` in-process on the flagship (``--scene
+               cornell_mesh`` pointed at the built cornell_mesh(6)) at
+               1920x1080, depth 8, ``--spp 6 --spp-per-step 1
+               --checkpoint --snapshot-every 2 --metrics-jsonl
+               --out-hdr``, interrupted (Ctrl-C) in its fifth step and
+               resumed from its checkpoint: the resumed radiance equals
+               six direct ``progressive.render_step`` calls bit for bit
+               (a checkpoint's fingerprint covers ``--spp``, so the
+               resume keeps the interrupted run's flags; another
+               ``--seed`` is refused); the metrics log's seconds a step
+               against the direct steps' (the shell's overhead) and the
+               step that writes a snapshot against the others (the
+               asynchronous present); ``--tiles 4 --inject-fault 1 --spp
+               2`` equal to the 2-spp render bit for bit; the
+               ``--adaptive``, ``--orbit 2 --temporal --denoise``, ``--aov
+               normal`` and ``examples/cornell.json`` branches at 480x270
+               and 1 spp. Every run launches rows 1-2 (the AOV row 1)
+               and no other kernel. Then two sharded 1-spp steps at a
+               world size of 1 over NCCL (``multihost_init`` from
+               torchrun's variables) equal to ``progressive`` bit for
+               bit, with ``gather_image``; ``render_adaptive_sharded``
+               at a world size of 1 (budget 4, warmup 2) against
+               ``render_adaptive_tiles`` with the same K and spp a
+               round, bit for bit; and the layout simulation: every
+               rank's ``rank_block`` of the (4, 1), (2, 2) and (1, 4)
+               layouts on the one card, merged in rank order, against a
+               4-spp progressive step, bit for bit with tiles only and
+               within rtol 1e-6 / atol 1e-5 with a samples axis.
   5. check   — each image is finite with a plausible mean, and a small
                render of each scene through the kernels agrees with the
                same render through the plain versions: 64x64 for the
@@ -2379,6 +2408,335 @@ def example_scenes(card):
     return out
 
 
+# The app shell (python -m pathtracing_tpu_torch.render) and parallel/
+# phases. The shell's flagship run is interrupted after SHELL_STOP of
+# SHELL_SPP steps (a checkpoint's fingerprint covers --spp, so a resume
+# keeps the interrupted run's flags) and resumed to SHELL_SPP; the other
+# branches run once at BRANCH_SIZE and 1 spp.
+SHELL_SPP, SHELL_STOP, SHELL_SNAPSHOT_EVERY = 6, 4, 2
+BRANCH_SIZE = (480, 270)
+SHELL_TILES, SHELL_FAULT_BAND = 4, 1
+LAYOUTS = ((4, 1), (2, 2), (1, 4))
+LAYOUT_SPP = 4               # samples a step of the layout simulation
+# The JAX package's tolerance for a samples axis (tests/test_parallel.py).
+SAMPLE_AXIS_RTOL, SAMPLE_AXIS_ATOL = 1e-6, 1e-5
+
+
+@contextlib.contextmanager
+def flagship_registry(scene, cam_cfg):
+    """``--scene cornell_mesh`` names the flagship's cornell_mesh(6),
+    already built on the card (the registry's default is 5)."""
+    from pathtracing_tpu_torch.models import scenes
+
+    real = scenes.SCENES["cornell_mesh"]
+    scenes.SCENES["cornell_mesh"] = lambda device=None: (scene, cam_cfg)
+    try:
+        yield
+    finally:
+        scenes.SCENES["cornell_mesh"] = real
+
+
+def shell(argv, label, card):
+    """``render.main(argv)`` in-process: (seconds to a synchronized card,
+    launches); fails unless it exits 0."""
+    from pathtracing_tpu_torch import render
+
+    reset_launches()
+    secs, rc = synced_s(lambda: render.main(argv))
+    la = launch_counts()
+    if rc != 0:
+        raise SmokeFailure(f"app shell {label}: exit {rc}")
+    print(f"app shell {label}: {secs:.3f} s, launches "
+          f"{ {k: v for k, v in la.items() if v} } on {card}", flush=True)
+    return secs, la
+
+
+def app_shell(scene, cam_cfg, config, card):
+    """The CLI on the flagship at 1080p (module docstring, phase 4).
+    Returns its numbers, and the accumulator of the direct 2-spp
+    progressive render the parallel phase compares with."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pathtracing_tpu_torch.models import progressive
+    from pathtracing_tpu_torch.ops.camera import build_camera
+
+    t = phase("app shell: render.main on the flagship")
+    out = {"card": card}
+    tmp = tempfile.mkdtemp(prefix="app_shell_")
+    ck, jl, hdr = (os.path.join(tmp, n) for n in ("ck.npz", "m.jsonl",
+                                                  "r.npz"))
+    common = ["--scene", "cornell_mesh", "--width", str(WIDTH),
+              "--height", str(HEIGHT), "--max-depth", str(DEPTH),
+              "--seed", "0", "--spp-per-step", "1"]
+    flag = [*common, "--spp", str(SHELL_SPP), "--checkpoint", ck,
+            "--snapshot-every", str(SHELL_SNAPSHOT_EVERY),
+            "--metrics-jsonl", jl, "--out-hdr", hdr,
+            "--out", os.path.join(tmp, "flagship.png")]
+
+    # The uninterrupted progressive render the resume must equal, stepped
+    # directly: also the shell's overhead a step.
+    camera = build_camera(cam_cfg, WIDTH / HEIGHT, device=DEVICE)
+    ref = progressive.init_state(config, device=DEVICE)
+    direct_s, accums = [], {}
+    for _ in range(SHELL_SPP):
+        secs, ref = synced_s(lambda: progressive.render_step(
+            ref, scene, camera, config))
+        direct_s.append(secs)
+        if ref.spp == EQUAL_SPP:
+            accums[ref.spp] = ref.accum.clone()
+    want = progressive.resolve(ref)
+
+    real_step, calls = progressive.render_step, []
+
+    def interrupted(*a, **k):
+        # Ctrl-C during step SHELL_STOP + 1: the CLI checkpoints the
+        # state of SHELL_STOP steps on its way out.
+        calls.append(1)
+        if len(calls) > SHELL_STOP:
+            raise KeyboardInterrupt
+        return real_step(*a, **k)
+
+    with flagship_registry(scene, cam_cfg):
+        progressive.render_step = interrupted
+        try:
+            first_s, la_first = shell(flag, "flagship (interrupted)", card)
+        finally:
+            progressive.render_step = real_step
+        with np.load(hdr) as data:
+            if int(data["spp"]) != SHELL_STOP:
+                raise SmokeFailure(f"the interrupted run wrote {data['spp']}"
+                                   " spp")
+        resume_s, la_resume = shell(flag, "flagship (resumed)", card)
+        with np.load(hdr) as data:
+            got, spp = torch.as_tensor(data["radiance"]), int(data["spp"])
+        with open(jl) as f:
+            steps = [json.loads(line) for line in f]
+        # --seed 7: a resume under another config is refused (exit 2).
+        from pathtracing_tpu_torch import render
+
+        refused = render.main([*flag[:-2], "--seed", "7", "--out",
+                               os.path.join(tmp, "x.png")])
+        for la, label in ((la_first, "flagship"), (la_resume, "resume")):
+            check_routes(f"app shell {label}", la, ("trace", "occluded"))
+        diff = (got - want.cpu()).abs()
+        step_s = [s["seconds"] for s in steps]
+        # Steps whose timer holds the write of the previous step's
+        # snapshot (the asynchronous present) against the others.
+        snap = [s["seconds"] for s in steps
+                if s["step"] > 1 and (s["step"] - 1) % SHELL_SNAPSHOT_EVERY
+                == 0 and s["step"] != SHELL_STOP + 1]
+        plain = [s["seconds"] for s in steps if s["step"] > 1
+                 and (s["step"] - 1) % SHELL_SNAPSHOT_EVERY != 0]
+        out["flagship"] = {
+            "resume_equal": bool(torch.equal(got, want.cpu())),
+            "max_abs_diff": float(diff.max()), "spp": spp,
+            "refused_other_seed": refused,
+            "metrics_steps": [s["step"] for s in steps],
+            "step_s": step_s, "direct_step_s": direct_s,
+            "shell_overhead_s": (sum(plain) / len(plain)
+                                 - sum(direct_s[1:]) / len(direct_s[1:])),
+            "snapshot_step_s": snap, "plain_step_s": plain,
+            "first_run_s": first_s, "resume_run_s": resume_s,
+            "launches": {k: la_first[k] + la_resume[k]
+                         for k in la_first if la_first[k] + la_resume[k]}}
+        if spp != SHELL_SPP or not out["flagship"]["resume_equal"]:
+            raise SmokeFailure(f"app shell resume: {spp} spp, max diff "
+                               f"{out['flagship']['max_abs_diff']}")
+        if refused != 2:
+            raise SmokeFailure(f"a resume under another seed exited "
+                               f"{refused}")
+        if len(steps) != SHELL_SPP:
+            raise SmokeFailure(f"metrics log has {len(steps)} steps")
+
+        # Band tiles with an injected fault against the 2-spp render.
+        secs, la = shell([*common, "--spp", str(EQUAL_SPP), "--tiles",
+                          str(SHELL_TILES), "--inject-fault",
+                          str(SHELL_FAULT_BAND), "--out-hdr", hdr,
+                          "--out", os.path.join(tmp, "tiles.png")],
+                         "tiles with a fault", card)
+        check_routes("app shell tiles", la, ("trace", "occluded"))
+        with np.load(hdr) as data:
+            tiled = torch.as_tensor(data["radiance"])
+        two = (accums[EQUAL_SPP] / float(EQUAL_SPP)).cpu()
+        out["tiles_fault"] = {"seconds": secs, "equal": bool(torch.equal(
+            tiled, two)), "max_abs_diff": float((tiled - two).abs().max()),
+            "launches": {k: v for k, v in la.items() if v}}
+        if not out["tiles_fault"]["equal"]:
+            raise SmokeFailure("the tiled render with a fault differs from "
+                               "progressive")
+
+        # The other branches, once each at BRANCH_SIZE and 1 spp.
+        small = ["--width", str(BRANCH_SIZE[0]), "--height",
+                 str(BRANCH_SIZE[1]), "--max-depth", str(DEPTH), "--spp",
+                 "1", "--spp-per-step", "1"]
+        branches = {
+            "adaptive": (["--scene", "cornell_mesh", "--adaptive",
+                          "--adaptive-tile", "10"], ("trace", "occluded")),
+            "orbit temporal denoise": (["--scene", "cornell_mesh", "--orbit",
+                                        "2", "--orbit-degrees", "4",
+                                        "--temporal", "--denoise"],
+                                       ("trace", "occluded")),
+            "aov normal": (["--scene", "cornell_mesh", "--aov", "normal"],
+                           ("trace",)),
+            "cornell.json": (["--scene", os.path.join(ROOT, "examples",
+                                                       "cornell.json")],
+                             ("trace", "occluded")),
+        }
+        out["branches"] = {}
+        for label, (extra, used) in branches.items():
+            name = label.split()[0].replace(".", "_")
+            secs, la = shell([*small, *extra, "--out",
+                              os.path.join(tmp, name + ".png")], label, card)
+            check_routes(f"app shell {label}", la, used)
+            out["branches"][label] = {
+                "seconds": secs,
+                "launches": {k: v for k, v in la.items() if v}}
+    out["seconds"] = time.perf_counter() - t
+    print("app shell " + json.dumps(out), flush=True)
+    return out, accums
+
+
+def parallel_phase(scene, cam_cfg, config, card, accums):
+    """``parallel/`` on the one card (module docstring, phase 4): two
+    sharded 1-spp steps at a world size of 1 over NCCL, the layout
+    simulation, and ``render_adaptive_sharded`` against
+    ``render_adaptive_tiles``. Returns its numbers."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from pathtracing_tpu_torch.models import adaptive, progressive
+    from pathtracing_tpu_torch.ops.camera import build_camera
+    from pathtracing_tpu_torch.parallel import adaptive as padaptive
+    from pathtracing_tpu_torch.parallel import mesh as mesh_mod
+    from pathtracing_tpu_torch.parallel import render as prender
+
+    t = phase("parallel: sharded steps, layout simulation, sharded adaptive")
+    out = {"card": card}
+    camera = build_camera(cam_cfg, WIDTH / HEIGHT, device=DEVICE)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        init_s, device = synced_s(lambda: mesh_mod.multihost_init(DEVICE))
+        mesh = mesh_mod.make_mesh(1, 1, device=device)
+        backend = "nccl" if DEVICE == "cuda" else "gloo"
+        if dist.get_backend() != backend or mesh.device != device:
+            raise SmokeFailure(f"world of 1 on {dist.get_backend()}, "
+                               f"{device}, mesh on {mesh.device}")
+        step = prender.make_sharded_step(mesh, config)
+        state = prender.init_sharded_state(mesh, config)
+        reset_launches()
+        steps_s = []
+        for _ in range(EQUAL_SPP):
+            secs, state = synced_s(lambda: step(state, scene, camera))
+            steps_s.append(secs)
+        la = launch_counts()
+        check_routes("sharded step", la, ("trace", "occluded"))
+        img = prender.gather_image(state, mesh)
+        ref = accums[EQUAL_SPP]
+        out["world1"] = {
+            "init_s": init_s, "step_s": steps_s,
+            "equal": bool(torch.equal(state.accum, ref)),
+            "image_equal": bool(torch.equal(img, ref / float(EQUAL_SPP))),
+            "max_abs_diff": float((state.accum - ref).abs().max()),
+            "launches": {k: v for k, v in la.items() if v}}
+        if not (out["world1"]["equal"] and out["world1"]["image_equal"]):
+            raise SmokeFailure("the sharded world-1 step differs from "
+                               "progressive")
+
+        # render_adaptive_sharded at a world size of 1 against the
+        # one-process tile scheduler with the same k and spp a round.
+        budget = dict(warmup_spp=ADAPTIVE_WARMUP, budget_spp=ADAPTIVE_BUDGET,
+                      spp_per_round=TILE_SPP_PER_ROUND)
+        k = (WIDTH // TILE) * (HEIGHT // TILE) // 8
+        reset_launches()
+        sh_s, (sh, sh_rounds) = synced_s(
+            lambda: padaptive.render_adaptive_sharded(
+                mesh, scene, camera, config, tile=TILE, tiles_per_round=k,
+                **budget))
+        la = launch_counts()
+        check_routes("sharded adaptive", la, ("trace", "occluded"))
+        one_s, (one, one_rounds) = synced_s(
+            lambda: adaptive.render_adaptive_tiles(
+                scene, camera, config, tile=TILE, tiles_per_round=k,
+                **budget))
+        sh_img = padaptive.gather_tile_image(sh, mesh, config, TILE)
+        one_img = adaptive.resolve_tiles(one, config, TILE)
+        out["adaptive"] = {
+            "k": k, "sharded_s": sh_s, "one_process_s": one_s,
+            "rounds": [sh_rounds, one_rounds],
+            "accum_equal": bool(torch.equal(sh.accum, one.accum)),
+            "m2_equal": bool(torch.equal(sh.m2, one.m2)),
+            "tile_spp_equal": bool(torch.equal(sh.tile_spp, one.tile_spp)),
+            "image_equal": bool(torch.equal(sh_img, one_img)),
+            "tiles_differ": int(((sh.accum - one.accum).abs().amax(
+                dim=(1, 2, 3)) > 0).sum()),
+            "spp_spent": int(sh.tile_spp.sum()) * TILE * TILE
+            / (WIDTH * HEIGHT),
+            "launches": {k_: v for k_, v in la.items() if v}}
+        del sh, one
+        if not all(out["adaptive"][key] for key in (
+                "accum_equal", "m2_equal", "tile_spp_equal", "image_equal")):
+            raise SmokeFailure("sharded adaptive differs from "
+                               "render_adaptive_tiles: "
+                               + json.dumps(out["adaptive"]))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+    # The layout simulation: every rank's rank_block of each layout on the
+    # one card, merged in rank order, against one progressive step of
+    # LAYOUT_SPP samples.
+    cfg = dataclasses.replace(config, samples_per_step=LAYOUT_SPP)
+    empty = progressive.init_state(cfg, device=DEVICE)
+    ref = progressive.render_step(
+        progressive.init_state(cfg, device=DEVICE), scene, camera,
+        cfg).accum
+    out["layouts"] = {}
+    for n_tiles, n_samples in LAYOUTS:
+        def simulate():
+            stripes = []
+            for tile in range(n_tiles):
+                block = None
+                for sample in range(n_samples):
+                    part = prender.rank_block(scene, camera, cfg, empty,
+                                              n_tiles, n_samples, tile,
+                                              sample)
+                    block = part if block is None else block + part
+                stripes.append(block)
+            return torch.cat(stripes)
+
+        secs, got = synced_s(simulate)
+        diff = (got - ref).abs()
+        tol_ok = bool((diff <= SAMPLE_AXIS_ATOL
+                       + SAMPLE_AXIS_RTOL * ref.abs()).all())
+        res = {"seconds": secs, "equal": bool(torch.equal(got, ref)),
+               "max_abs_diff": float(diff.max()),
+               "pixels_differ": int((diff.amax(-1) > 0).sum()),
+               "within_tolerance": tol_ok}
+        out["layouts"][f"{n_tiles}x{n_samples}"] = res
+        if (n_samples == 1 and not res["equal"]) or not tol_ok:
+            raise SmokeFailure(f"layout {n_tiles}x{n_samples}: "
+                               + json.dumps(res))
+    out["seconds"] = time.perf_counter() - t
+    print("parallel " + json.dumps(out), flush=True)
+    return out
+
+
 def run() -> dict:
     import torch
 
@@ -2712,6 +3070,11 @@ def run() -> dict:
     print(f"schedulers, post-passes and example scenes: "
           f"{time.perf_counter() - t:.2f} s", flush=True)
 
+    # The app shell (item 21) and parallel/ (item 19).
+    shell_res, accums = app_shell(scene, cam_cfg, config, card)
+    parallel_res = parallel_phase(scene, cam_cfg, config, card, accums)
+    del accums
+
     phase("check")
     for name in NEW_SCENES:
         sc, cc = new[name]
@@ -2886,6 +3249,14 @@ def run() -> dict:
                 name: res["launches"].get(key, 0)
                 for name, res in examples.items()
                 if res["launches"].get(key)}
+            entry["launches_app_shell"] = {
+                label: res["launches"].get(key, 0) for label, res in (
+                    ("flagship", shell_res["flagship"]),
+                    ("tiles_fault", shell_res["tiles_fault"]),
+                    *shell_res["branches"].items())}
+            entry["launches_parallel"] = {
+                label: parallel_res[label]["launches"].get(key, 0)
+                for label in ("world1", "adaptive")}
     for entry in kernels:
         entry["ptxas"] = {k: v for k, v in ptxas.items()
                           if k.split("<")[0] == entry["kernel"]}

@@ -291,13 +291,19 @@ def _tile_pixel_ids(tile_ids, config: RenderConfig, tile: int):
 
 
 def tile_step(state: TileState, scene, camera, config: RenderConfig,
-              tile: int, tile_ids, spp_per_round: int = 1) -> TileState:
+              tile: int, tile_ids, spp_per_round: int = 1,
+              tile_offset: int = 0) -> TileState:
     """Add ``spp_per_round`` samples to each tile of ``tile_ids`` ((K,),
     unique): one scattered-pixels wave per sample, packed tile-major, and
-    an index add of whole tiles. Updates the state in place."""
+    an index add of whole tiles. Updates the state in place.
+
+    ``tile_offset``: the state holds the image's tiles from this one on
+    (a shard's stripe, ``parallel/adaptive.py``); the waves trace the
+    global tiles ``tile_ids + tile_offset``, so every sample keeps its
+    global (pixel, sample) id."""
     tile_ids = tile_ids.to(device=state.accum.device, dtype=torch.int64)
     k = tile_ids.shape[0]
-    pix = _tile_pixel_ids(tile_ids, config, tile)
+    pix = _tile_pixel_ids(tile_ids + tile_offset, config, tile)
     start = state.tile_spp[tile_ids].to(torch.int64)
     for s in range(spp_per_round):
         blocks = megakernel.render_samples(

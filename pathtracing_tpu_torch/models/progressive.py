@@ -55,6 +55,19 @@ def resolve(state: RenderState) -> torch.Tensor:
     return state.accum / float(max(state.spp, 1))
 
 
+def resolve_preview(state: RenderState, factor: int) -> torch.Tensor:
+    """``resolve`` mean-pooled by ``factor`` on the device, for a live
+    preview that copies a factor²-smaller image to the host. Edge rows and
+    columns short of a full pool window are cropped (file writes always
+    use ``resolve``)."""
+    img = resolve(state)
+    h, w, _ = img.shape
+    hc, wc = (h // factor) * factor, (w // factor) * factor
+    pooled = img[:hc, :wc].reshape(hc // factor, factor, wc // factor,
+                                   factor, 3)
+    return pooled.mean(dim=(1, 3))
+
+
 def render_once(scene, camera, config: RenderConfig) -> torch.Tensor:
     """Single-shot render at ``config.samples_per_pixel`` (mean radiance)."""
     sample = megakernel.render_samples(

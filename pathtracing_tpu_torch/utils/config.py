@@ -2,15 +2,18 @@
 ``CameraConfig`` with the same fields and defaults, plus the device rule.
 
 ``resolve_traversal`` picks the hand-written CUDA cluster kernels for a
-scene on the card and their plain torch versions for a scene on the CPU;
-``"bvh"`` (the threaded-BVH walk in plain torch, the JAX package's CPU
-default) is taken only when asked for. The JAX package's
-``cluster_interpret`` mode has no counterpart here.
+scene on the card and their plain torch versions for a scene on the CPU
+or in debug mode; ``"bvh"`` (the threaded-BVH walk in plain torch, the JAX
+package's CPU default) is taken only when asked for. The JAX package's
+``cluster_interpret`` mode has no counterpart here: debug mode's checked
+route is the plain torch one. ``DeviceConfig`` describes the process
+mesh of ``parallel/``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Tuple
 
 import torch
@@ -101,7 +104,8 @@ class RenderConfig:
 
     def resolve_traversal(self, scene=None) -> str:
         """"auto" picks the CUDA kernels for a scene on the card and the
-        plain torch sweep for a scene on the CPU."""
+        plain torch versions for a scene on the CPU or with ``debug`` (the
+        counterpart of the JAX package's checked, interpreted kernels)."""
         if self.traversal != "auto":
             if self.traversal not in TRAVERSALS:
                 raise ValueError(
@@ -109,6 +113,26 @@ class RenderConfig:
                     f"one of {TRAVERSALS}"
                 )
             return self.traversal
-        if scene is not None and scene.tri_v0.device.type == "cuda":
+        if (not self.debug and scene is not None
+                and scene.tri_v0.device.type == "cuda"):
             return "cluster_cuda"
         return "cluster_torch"
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceConfig:
+    """Process-mesh layout for sharded rendering (the JAX package's
+    ``DeviceConfig``): ``mesh_shape`` maps onto (tiles, samples); the
+    tiles axis shards image rows, the samples axis samples per pixel
+    (merged by an all-reduce)."""
+
+    mesh_shape: Tuple[int, ...] = (1,)
+    mesh_axes: Tuple[str, ...] = ("tiles",)
+    donate_state: bool = True
+
+
+def render_config_from_json(path: str) -> RenderConfig:
+    """A ``RenderConfig`` from a JSON object of its fields."""
+    with open(path) as f:
+        raw = json.load(f)
+    return RenderConfig(**raw)

@@ -409,14 +409,12 @@ def _open_roadmap_items():
 
 def test_not_implemented_messages_name_an_open_item():
     """Every ``NotImplementedError`` the port raises names the ROADMAP
-    queue-A item that ports it, and that item is still open. Items 17 and
-    18 (the schedulers and post-passes, the file I/O) are done: no
-    message names them (none may be left), the app shell (21) and
-    ``parallel/`` (19) are open, and the tables of unported scene fields
-    and scenes are gone."""
+    queue-A item that ports it, and that item is still open. Queue A is
+    empty since the app shell (21) and ``parallel/`` (19) were ported: no
+    item is open, so no ``NotImplementedError`` may be left, and the
+    tables of unported scene fields and scenes are gone."""
     open_items = _open_roadmap_items()
-    assert {19, 21} <= open_items
-    assert not {10, 11, 12, 13, 16, 17, 18, 20} & open_items
+    assert open_items == set()
     assert not hasattr(scene_mod, "_UNPORTED_FIELDS")
     assert not hasattr(scenes, "UNPORTED_SCENES")
     raises = []
@@ -434,7 +432,4 @@ def test_not_implemented_messages_name_an_open_item():
                                if isinstance(c, ast.Constant)
                                and isinstance(c.value, str))
                 raises.append((f"{path}:{node.lineno}", text))
-    for where, text in raises:
-        assert "queue A" in text, where
-        items = {int(n) for n in re.findall(r"item (\d+)", text)}
-        assert items <= open_items, (where, items)
+    assert raises == []
