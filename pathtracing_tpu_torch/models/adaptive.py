@@ -31,6 +31,7 @@ import torch
 
 from pathtracing_tpu_torch.models import megakernel
 from pathtracing_tpu_torch.utils import logging as ptlog
+from pathtracing_tpu_torch.utils import metrics
 from pathtracing_tpu_torch.utils.config import RenderConfig, resolve_device
 
 _LUM = (0.2126, 0.7152, 0.0722)
@@ -323,11 +324,13 @@ def tile_step(state: TileState, scene, camera, config: RenderConfig,
 def tile_rounds(state: TileState, scene, camera, config: RenderConfig,
                 tile: int, k: int, n_rounds: int,
                 spp_per_round: int = 1) -> TileState:
-    """``n_rounds`` greedy tile rounds, as ``adaptive_rounds``."""
+    """``n_rounds`` greedy tile rounds, as ``adaptive_rounds``; each is
+    one ``engine.step`` span (``utils.metrics``)."""
     for _ in range(n_rounds):
-        ids = top_k(tile_scores(state, config, tile), k)
-        state = tile_step(state, scene, camera, config, tile, ids,
-                          spp_per_round)
+        with metrics.step():
+            ids = top_k(tile_scores(state, config, tile), k)
+            state = tile_step(state, scene, camera, config, tile, ids,
+                              spp_per_round)
     return state
 
 
@@ -358,18 +361,20 @@ def uniform_tile_rounds(state: TileState, scene, camera,
     """``n_samples`` full-image samples added to a tile-major state through
     block mode: the sample ids the greedy scheduler would issue if it
     picked every tile (tile 0's counter stands for all of them), so the
-    state stays interchangeable with the uniform engines'."""
+    state stays interchangeable with the uniform engines'. Each sample
+    is one ``engine.step`` span."""
     h, w = config.height, config.width
     nty, ntx = h // tile, w // tile
     start = state.tile_spp[0].to(torch.int64)
     for s in range(n_samples):
-        img = megakernel.render_samples(
-            scene, camera, config, sample_start=start + s, n_samples=1,
-            seed=state.seed)
-        blocks = img.reshape(nty, tile, ntx, tile, 3).permute(
-            0, 2, 1, 3, 4).reshape(-1, tile, tile, 3)
-        state.accum.add_(blocks)
-        state.m2.add_(blocks * blocks)
+        with metrics.step():
+            img = megakernel.render_samples(
+                scene, camera, config, sample_start=start + s, n_samples=1,
+                seed=state.seed)
+            blocks = img.reshape(nty, tile, ntx, tile, 3).permute(
+                0, 2, 1, 3, 4).reshape(-1, tile, tile, 3)
+            state.accum.add_(blocks)
+            state.m2.add_(blocks * blocks)
     state.tile_spp.add_(n_samples)
     return state
 
@@ -425,7 +430,8 @@ def render_adaptive_tiles(scene, camera, config: RenderConfig,
 
     def hit_target(st: TileState) -> bool:
         return (target_rmse > 0.0
-                and float(predicted_rmse(st, config, tile)) <= target_rmse)
+                and metrics.host_read("tiles.rmse", float, predicted_rmse(
+                    st, config, tile)) <= target_rmse)
 
     budget = n_tiles * target
     spent = rounds = 0
@@ -434,7 +440,8 @@ def render_adaptive_tiles(scene, camera, config: RenderConfig,
     for _ in range(warm):
         for i in range(0, n_tiles, k):
             chunk = all_tiles[i:i + k]
-            state = tile_step(state, scene, camera, config, tile, chunk)
+            with metrics.step():
+                state = tile_step(state, scene, camera, config, tile, chunk)
             spent += chunk.shape[0]
             rounds += 1
         if progress is not None:
@@ -443,7 +450,8 @@ def render_adaptive_tiles(scene, camera, config: RenderConfig,
         return state, rounds
 
     if auto_uniform > 0.0 and warmup_spp >= 2 and spent < budget:
-        gain = float(tile_neyman_gain(state, config, tile))
+        gain = metrics.host_read("tiles.neyman", float,
+                                 tile_neyman_gain(state, config, tile))
         ptlog.log_information(
             "adaptive: Neyman gain bound %.2f vs auto-uniform threshold "
             "%.2f -> %s scheduling", gain, auto_uniform,

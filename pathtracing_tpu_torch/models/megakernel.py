@@ -27,6 +27,7 @@ import torch
 from pathtracing_tpu_torch.models import scene as scene_mod
 from pathtracing_tpu_torch.models import shading
 from pathtracing_tpu_torch.ops import binning, rng
+from pathtracing_tpu_torch.utils import metrics
 from pathtracing_tpu_torch.utils.config import RenderConfig
 
 # Ceiling on rays per bounce wave. The JAX package's 1 << 18 exists for a
@@ -214,18 +215,20 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
     def bounces(state, per_path, start, stop):
         ks, ldn, lds, tm = per_path
         for depth in range(start, stop):
-            out = shading.bounce_batch(
-                scene, state[2], state[3], ks, depth, state[0], state[1],
-                state[4], config.rr_start_depth, config.background,
-                traversal, nee=config.nee, prev_pdf=state[5],
-                prev_nee=state[6], ld_nee=ldn, ld_scatter=lds,
-                nee_candidates=config.nee_candidates,
-                return_shadow_count=True, time=tm,
-                medium=state[7] if has_media else None,
-                sss=state[7 + has_media] if has_sss else None,
-                cone=state[7 + has_media + has_sss] if has_mips else None,
-                cone_spread=spread, bin_rays=config.ray_sort,
-            )
+            with metrics.span("engine.bounce"):
+                out = shading.bounce_batch(
+                    scene, state[2], state[3], ks, depth, state[0],
+                    state[1], state[4], config.rr_start_depth,
+                    config.background, traversal, nee=config.nee,
+                    prev_pdf=state[5], prev_nee=state[6], ld_nee=ldn,
+                    ld_scatter=lds, nee_candidates=config.nee_candidates,
+                    return_shadow_count=True, time=tm,
+                    medium=state[7] if has_media else None,
+                    sss=state[7 + has_media] if has_sss else None,
+                    cone=(state[7 + has_media + has_sss] if has_mips
+                          else None),
+                    cone_spread=spread, bin_rays=config.ray_sort,
+                )
             if stats is not None:
                 stats["segments"] = stats.get("segments", 0) + state[4].sum()
                 stats["shadow_segments"] = (stats.get("shadow_segments", 0)
@@ -243,14 +246,16 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
     undo = []
     for d in depths:
         state = bounces(state, per_path, start, d)
-        perm, inv = binning.binning_perm(
-            torch.where(state[4], 0, 1).to(torch.int32), 2
-        )
-        n_live = int(state[4].sum())
-        undo.append((inv, state[0], perm[n_live:]))
-        keep = perm[:n_live]
-        state = tuple(a[keep] for a in state)
-        per_path = [None if a is None else a[keep] for a in per_path]
+        with metrics.span("engine.compact"):
+            perm, inv = binning.binning_perm(
+                torch.where(state[4], 0, 1).to(torch.int32), 2
+            )
+            n_live = metrics.host_read("engine.compact", int,
+                                       state[4].sum())
+            undo.append((inv, state[0], perm[n_live:]))
+            keep = perm[:n_live]
+            state = tuple(a[keep] for a in state)
+            per_path = [None if a is None else a[keep] for a in per_path]
         start = d
     radiance = bounces(state, per_path, start, config.max_depth)[0]
     for inv, full_radiance, dead in reversed(undo):

@@ -12,6 +12,7 @@ from typing import NamedTuple
 import torch
 
 from pathtracing_tpu_torch.models import megakernel
+from pathtracing_tpu_torch.utils import metrics
 from pathtracing_tpu_torch.utils.config import RenderConfig, resolve_device
 
 
@@ -39,12 +40,14 @@ def render_step(state: RenderState, scene, camera,
 
     ``state.accum`` is updated IN PLACE (the returned state holds the same
     tensor), the analogue of the JAX engine's donated buffer. ``stats``
-    as in ``megakernel.render_samples``."""
-    sample = megakernel.render_samples(
-        scene, camera, config, sample_start=state.spp,
-        n_samples=config.samples_per_step, seed=state.seed, stats=stats,
-    )
-    state.accum.add_(sample)
+    as in ``megakernel.render_samples``. One step is one
+    ``engine.step`` span (``utils.metrics``)."""
+    with metrics.step():
+        sample = megakernel.render_samples(
+            scene, camera, config, sample_start=state.spp,
+            n_samples=config.samples_per_step, seed=state.seed, stats=stats,
+        )
+        state.accum.add_(sample)
     return RenderState(accum=state.accum,
                        spp=state.spp + config.samples_per_step,
                        seed=state.seed)

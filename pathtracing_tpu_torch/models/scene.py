@@ -46,6 +46,7 @@ from pathtracing_tpu_torch.ops import lights, linalg
 from pathtracing_tpu_torch.ops import materials
 from pathtracing_tpu_torch.ops import texture as texture_ops
 from pathtracing_tpu_torch.ops import volume as volume_ops
+from pathtracing_tpu_torch.utils import metrics
 from pathtracing_tpu_torch.utils.config import resolve_device
 
 
@@ -1204,6 +1205,7 @@ def _binned(scene: Scene, query, origin, direction, cap, time):
     return out[inv]
 
 
+@metrics.traced("trace.occluded")
 def occluded_batch(scene: Scene, origin, direction, t_max,
                    traversal: str, active=None, time=None,
                    bin_rays: bool = False):
@@ -1233,6 +1235,7 @@ def occluded_batch(scene: Scene, origin, direction, t_max,
     return occ_sph | query(origin, direction, cap, time)
 
 
+@metrics.traced("trace.closest")
 def intersect_batch(scene: Scene, origin, direction, traversal: str,
                     active=None, t_max=None, time=None,
                     bin_rays: bool = False) -> Hit:

@@ -33,6 +33,7 @@ from pathtracing_tpu_torch.models import scene as scene_mod
 from pathtracing_tpu_torch.models import shading
 from pathtracing_tpu_torch.models.progressive import RenderState
 from pathtracing_tpu_torch.ops import rng
+from pathtracing_tpu_torch.utils import metrics
 from pathtracing_tpu_torch.utils.config import RenderConfig
 
 
@@ -92,6 +93,13 @@ def pool_size(config: RenderConfig) -> int:
     return min(config.width * config.height, 1 << 20)
 
 
+def _fill(idx, fills):
+    """``x[idx] = value`` for each (x, value): a Python scalar set at
+    tensor indices is copied to the device first, a blocking copy each."""
+    for x, value in fills:
+        x[idx] = value
+
+
 def _refill(pool: PathPool, n_take: int, next_path: int, camera,
             config: RenderConfig, seed: int, sample_start: int):
     """Fill the first ``n_take`` dead slots (in slot order) with the
@@ -99,25 +107,24 @@ def _refill(pool: PathPool, n_take: int, next_path: int, camera,
     npix = config.width * config.height
     dead = ~pool.active
     rank = torch.cumsum(dead, 0) - dead.to(torch.int64)
-    idx = torch.nonzero(dead & (rank < n_take)).squeeze(1)
+    idx = metrics.host_read("wavefront.refill", torch.nonzero,
+                            dead & (rank < n_take)).squeeze(1)
     stream = next_path + rank[idx]
     pixel = stream % npix
     sample = sample_start + stream // npix
     keys, o, d = shading.camera_sample(camera, config, seed, pixel, sample)
     pool.origin[idx] = o
     pool.direction[idx] = d
-    pool.radiance[idx] = 0.0
-    pool.throughput[idx] = 1.0
     pool.pixel[idx] = pixel
     pool.sample[idx] = sample
-    pool.depth[idx] = 0
-    pool.active[idx] = True
-    pool.prev_pdf[idx] = 0.0
-    pool.prev_nee[idx] = False
     pool.keys[idx] = keys
-    for x in (pool.medium, pool.sss, pool.cone):
-        if x is not None:
-            x[idx] = 0.0
+    fills = [(pool.radiance, 0.0), (pool.throughput, 1.0), (pool.depth, 0),
+             (pool.active, True), (pool.prev_pdf, 0.0),
+             (pool.prev_nee, False)]
+    fills += [(x, 0.0) for x in (pool.medium, pool.sss, pool.cone)
+              if x is not None]
+    metrics.host_read("wavefront.refill", _fill, idx, fills,
+                      syncs=len(fills))
     if pool.ld_nee is not None:
         pick = rng.ld_scalar(seed, pixel, sample, rng.STREAM_NEE)
         pool.ld_nee[idx] = torch.stack(
@@ -142,9 +149,12 @@ def _deposit(accum_flat, pixel, value, unique: bool):
     new = torch.ones_like(pix, dtype=torch.bool)
     new[1:] = pix[1:] != pix[:-1]
     rank = pos - torch.cummax(torch.where(new, pos, 0), 0).values
-    for k in range(int(rank.max()) + 1 if pix.numel() else 0):
+    n_ranks = (metrics.host_read("wavefront.deposit", int, rank.max()) + 1
+               if pix.numel() else 0)
+    for k in range(n_ranks):
         sel = rank == k
-        accum_flat.index_add_(0, pix[sel], value[sel])
+        accum_flat.index_add_(0, *metrics.host_read(
+            "wavefront.deposit", metrics.masked, sel, pix, value, syncs=2))
 
 
 def render_wave(scene, camera, config: RenderConfig, accum_flat,
@@ -182,17 +192,18 @@ def render_wave(scene, camera, config: RenderConfig, accum_flat,
         next_path = min(next_path + n_dead, total)
         live_segments += n_active + n_take
 
-        out = shading.bounce_batch(
-            scene, pool.origin, pool.direction, pool.keys, pool.depth,
-            pool.radiance, pool.throughput, pool.active,
-            config.rr_start_depth, config.background, traversal,
-            nee=config.nee, prev_pdf=pool.prev_pdf, prev_nee=pool.prev_nee,
-            bin_rays=config.ray_sort, return_shadow_count=True,
-            ld_nee=pool.ld_nee, ld_scatter=pool.ld_scatter,
-            medium=pool.medium, sss=pool.sss, time=pool.time,
-            cone=pool.cone, cone_spread=spread,
-            nee_candidates=config.nee_candidates,
-        )
+        with metrics.span("engine.bounce"):
+            out = shading.bounce_batch(
+                scene, pool.origin, pool.direction, pool.keys, pool.depth,
+                pool.radiance, pool.throughput, pool.active,
+                config.rr_start_depth, config.background, traversal,
+                nee=config.nee, prev_pdf=pool.prev_pdf,
+                prev_nee=pool.prev_nee, bin_rays=config.ray_sort,
+                return_shadow_count=True, ld_nee=pool.ld_nee,
+                ld_scatter=pool.ld_scatter, medium=pool.medium,
+                sss=pool.sss, time=pool.time, cone=pool.cone,
+                cone_spread=spread, nee_candidates=config.nee_candidates,
+            )
         radiance, throughput, o, d, active, pdf, pdiff = out[:7]
         # Decoded by the scene's flags, never by the tuple's length.
         rest = 7
@@ -207,20 +218,22 @@ def render_wave(scene, camera, config: RenderConfig, accum_flat,
         active = active & (depth < config.max_depth)
 
         # Paths that ended deposit once and zero their estimate.
-        finished = torch.nonzero(pool.active & ~active).squeeze(1)
+        finished = metrics.host_read("wavefront.finished", torch.nonzero,
+                                     pool.active & ~active).squeeze(1)
         value = radiance[finished]
         if config.clamp > 0.0:
             value = torch.clamp(value, max=config.clamp)
         _deposit(accum_flat, pool.pixel[finished], value,
                  unique=n_samples == 1)
-        radiance[finished] = 0.0
+        metrics.host_read("wavefront.finished", radiance.__setitem__,
+                          finished, 0.0)
         pool = pool._replace(
             origin=o, direction=d, radiance=radiance, throughput=throughput,
             depth=depth, active=active, prev_pdf=pdf, prev_nee=pdiff,
             medium=medium, sss=sss, cone=cone)
-        n_active = int(active.sum())
+        n_active = metrics.host_read("wavefront.live", int, active.sum())
         iterations += 1
-    shadow = int(shadow)
+    shadow = metrics.host_read("wavefront.shadow", int, shadow)
     if stats is not None:
         stats["segments"] = stats.get("segments", 0) + live_segments
         stats["shadow_segments"] = stats.get("shadow_segments", 0) + shadow
@@ -232,11 +245,14 @@ def render_wave(scene, camera, config: RenderConfig, accum_flat,
 def render_step(state: RenderState, scene, camera, config: RenderConfig,
                 stats=None) -> RenderState:
     """One progressive step through the wavefront engine (drop-in for
-    ``progressive.render_step``): ``state.accum`` is updated in place."""
+    ``progressive.render_step``): ``state.accum`` is updated in place.
+    One step is one ``engine.step`` span (``utils.metrics``)."""
     h, w = config.height, config.width
-    render_wave(scene, camera, config, state.accum.view(h * w, 3),
-                sample_start=state.spp, n_samples=config.samples_per_step,
-                seed=state.seed, stats=stats)
+    with metrics.step():
+        render_wave(scene, camera, config, state.accum.view(h * w, 3),
+                    sample_start=state.spp,
+                    n_samples=config.samples_per_step, seed=state.seed,
+                    stats=stats)
     return RenderState(accum=state.accum,
                        spp=state.spp + config.samples_per_step,
                        seed=state.seed)

@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pathtracing_tpu_torch.utils import metrics
+
 M32 = 0xFFFFFFFF
 
 # Stream tags — the JAX package's constants, so both draw the same streams.
@@ -40,6 +42,10 @@ STREAM_SSS = 0x4D2B
 _LD_SCALAR_SALT = 0x27D4
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+# The span of the public entries below: the host's issue of the
+# generator's ops (``utils.metrics``).
+SPAN = "shade.rng"
 
 
 def _rotl(x, r: int):
@@ -62,17 +68,19 @@ def threefry2x32(k0, k1, x0, x1):
 
 def _words(x, device):
     if not torch.is_tensor(x):
-        x = torch.tensor(int(x), dtype=torch.int64, device=device)
+        x = metrics.to_device("rng.words", int(x), torch.int64, device)
     return x.to(torch.int64) & M32
 
 
+@metrics.traced(SPAN)
 def key(seed, device=None):
     """``jax.random.key(seed)`` as a (2,) int64 word pair."""
     s = int(seed)
-    return torch.tensor([(s >> 32) & M32, s & M32], dtype=torch.int64,
-                        device=device)
+    return metrics.to_device("rng.key", [(s >> 32) & M32, s & M32],
+                             torch.int64, device)
 
 
+@metrics.traced(SPAN)
 def fold_in(k, data):
     """``jax.random.fold_in`` broadcast over a key batch and/or a data batch
     (``data`` an int, or an integer tensor; negative ints wrap as uint32)."""
@@ -81,6 +89,7 @@ def fold_in(k, data):
     return torch.stack(torch.broadcast_tensors(o0, o1), dim=-1)
 
 
+@metrics.traced(SPAN)
 def random_bits(k, n=None):
     """32-bit words of ``jax.random.bits(k, shape)``: shape () when ``n`` is
     None (returns k.shape[:-1]) else (n,) (returns k.shape[:-1] + (n,))."""
@@ -94,12 +103,14 @@ def random_bits(k, n=None):
     return o0 ^ o1
 
 
+@metrics.traced(SPAN)
 def uniform(k, n=None):
     """``jax.random.uniform(k, shape, float32)`` in [0, 1), bit-exact."""
     bits = (random_bits(k, n) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
+@metrics.traced(SPAN)
 def pixel_sample_key(seed, pixel_index, sample_index):
     """Key for each (pixel, sample) pair; ``pixel_index`` is a tensor of
     flat row-major pixel ids, ``sample_index`` the global sample counter
@@ -108,6 +119,7 @@ def pixel_sample_key(seed, pixel_index, sample_index):
     return fold_in(fold_in(k, pixel_index), sample_index)
 
 
+@metrics.traced(SPAN)
 def stream_key(k, bounce, stream_tag):
     """Sub-key for one RNG consumer at one bounce."""
     return fold_in(fold_in(k, bounce), stream_tag)
@@ -159,9 +171,11 @@ _LD_SCALAR_BASES = {
 def _index(sample_index, device):
     if torch.is_tensor(sample_index):
         return sample_index.to(device)
-    return torch.tensor(int(sample_index), dtype=torch.int64, device=device)
+    return metrics.to_device("rng.index", int(sample_index), torch.int64,
+                             device)
 
 
+@metrics.traced(SPAN)
 def ld_scalar(seed, pixel_index, sample_index, stream_tag):
     """Stratified 1D sample: van der Corput in the stream's own prime base
     plus a per-(seed, pixel, stream) rotation. Shape of ``pixel_index``
@@ -174,6 +188,7 @@ def ld_scalar(seed, pixel_index, sample_index, stream_tag):
     return u - torch.floor(u)
 
 
+@metrics.traced(SPAN)
 def ld_pair(seed, pixel_index, sample_index, stream_tag):
     """Stratified 2D sample: the stream's Halton prime pair at
     ``sample_index`` with a per-(seed, pixel, stream) rotation."""

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from pathtracing_tpu_torch.ops import rng
+from pathtracing_tpu_torch.utils import metrics
 
 # fold_in salts that keep the ratio-tracking walks of the three NEE arms
 # (area light, environment, delta light) on disjoint sub-streams.
@@ -344,10 +345,12 @@ def _ray_rate(vol: VolumeGrid, o, d, t0, t1):
 def _walk_lanes(vol, o, d, t0, t1, want):
     """The lanes ``want`` & (t0 < t1) & (rate > 0) that a batched walk
     takes, with their rates: (index, inv_rate) of those lanes only."""
-    idx = torch.nonzero(want & (t0 < t1)).squeeze(1)
+    idx = metrics.host_read("volume.lanes", torch.nonzero,
+                            want & (t0 < t1)).squeeze(1)
     rate, inv_rate = _ray_rate(vol, o[idx], d[idx], t0[idx], t1[idx])
     keep = rate > 0.0
-    return idx[keep], inv_rate[keep]
+    return metrics.host_read("volume.lanes", metrics.masked, keep, idx,
+                             inv_rate, syncs=2)
 
 
 def _round(vol, k, i, o, d, t, inv_rate, n_u):
@@ -390,12 +393,17 @@ def sample_distance(vol: VolumeGrid, keys, depth, o, d, t_max, active):
         any_acc = torch.any(accept, dim=1)
         first = torch.argmax(accept.to(torch.int8), dim=1)      # first True
         t_hit = torch.gather(ts, 1, first[:, None])[:, 0]
-        hit_idx = idx[any_acc]
-        event[hit_idx] = True
-        t_evt[hit_idx] = t_hit[any_acc]
+        # Every round reads the walking lanes back (ROADMAP C2).
+        hit_idx, t_acc = metrics.host_read(
+            "volume.distance", metrics.masked, any_acc, idx, t_hit, syncs=2)
+        metrics.host_read("volume.distance", event.__setitem__, hit_idx,
+                          True)
+        t_evt[hit_idx] = t_acc
         go = ~any_acc & (ts[:, -1] < t1w)
-        idx, k, ow, dw = idx[go], k[go], ow[go], dw[go]
-        t, t1w, inv_rate = ts[go, -1], t1w[go], inv_rate[go]
+        idx, k, ow, dw, t1w, inv_rate = metrics.host_read(
+            "volume.distance", metrics.masked, go, idx, k, ow, dw, t1w,
+            inv_rate, syncs=6)
+        t = metrics.host_read("volume.distance", ts.__getitem__, (go, -1))
         i += 1
     u_phase = rng.uniform(rng.fold_in(k_vol, n_rounds), 2)
     return event, torch.where(event, t_evt, t1), u_phase
@@ -434,8 +442,11 @@ def transmittance(vol: VolumeGrid, keys, depth, o, d, t_max, salt,
         tr = tr * torch.prod(torch.where(counts, ratio, 1.0), dim=1)
         trans[idx] = tr
         go = (ts[:, -1] < t1w) & (tr > 0.0)
-        idx, k, ow, dw = idx[go], k[go], ow[go], dw[go]
-        t, t1w, inv_rate, tr = ts[go, -1], t1w[go], inv_rate[go], tr[go]
+        idx, k, ow, dw, t1w, inv_rate, tr = metrics.host_read(
+            "volume.transmittance", metrics.masked, go, idx, k, ow, dw, t1w,
+            inv_rate, tr, syncs=7)
+        t = metrics.host_read("volume.transmittance", ts.__getitem__,
+                              (go, -1))
         i += 1
     return trans
 

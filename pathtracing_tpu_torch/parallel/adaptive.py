@@ -33,6 +33,7 @@ from pathtracing_tpu_torch.models import adaptive
 from pathtracing_tpu_torch.models.adaptive import TileState
 from pathtracing_tpu_torch.parallel.mesh import Mesh
 from pathtracing_tpu_torch.utils import logging as ptlog
+from pathtracing_tpu_torch.utils import metrics
 from pathtracing_tpu_torch.utils.config import RenderConfig
 
 
@@ -122,10 +123,11 @@ def predicted_rmse(state: TileState, mesh: Mesh, config: RenderConfig,
     the mesh must call it together."""
     var1, n = adaptive._tile_var1(state)
     sums = torch.stack([(var1 / n[:, None, None, None]).sum().double(),
-                        torch.tensor(float(var1.numel()), dtype=torch.float64,
-                                     device=var1.device)])
+                        metrics.to_device("tiles.rmse", float(var1.numel()),
+                                          torch.float64, var1.device)])
     dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=mesh.tiles_group)
-    return float(torch.sqrt(sums[0] / sums[1]))
+    return metrics.host_read("tiles.rmse", float,
+                             torch.sqrt(sums[0] / sums[1]))
 
 
 def render_adaptive_sharded(mesh: Mesh, scene, camera,

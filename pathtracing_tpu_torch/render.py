@@ -361,16 +361,46 @@ def main(argv=None) -> int:
         dist.destroy_process_group()
 
 
-def _step_metrics(config, step, spp, seconds):
-    rays = metrics.rays_per_sample(
-        config.width, config.height, config.max_depth
-    ) * config.samples_per_step
+def _step_metrics(config, step, spp, seconds, stats=None):
+    """The step's log line. ``stats``: the engine's counts of the step
+    (``segments`` and ``shadow_segments``), read after the ``Timer``'s
+    synchronise: Mrays/s counts the rays traced. Without them (the sharded
+    step, whose rank counts only its own rays) it falls back to
+    ``metrics.rays_per_sample``, ``max_depth`` rays a path, an upper
+    bound."""
+    if stats:
+        rays = sum(metrics.host_read("cli.rays", int, stats.get(k, 0))
+                   for k in ("segments", "shadow_segments"))
+    else:
+        rays = metrics.rays_per_sample(
+            config.width, config.height, config.max_depth
+        ) * config.samples_per_step
     return metrics.StepMetrics(
         step=step, seconds=seconds, samples_added=config.samples_per_step,
         total_spp=spp, mrays_per_s=rays / seconds / 1e6,
         samples_per_s=config.width * config.height
         * config.samples_per_step / seconds,
     )
+
+
+def _log_idle_by_span(prof) -> None:
+    """Why the card sat idle in the profiled steps: its idle ms under each
+    innermost port span (``metrics.idle_by_span``), and the steps' host
+    syncs and host wait."""
+    steps = metrics.steps()
+    if not steps:
+        return
+    syncs = sorted(s["host_syncs"] for s in steps)
+    wait = sorted(s["host_wait_ns"] * 1e-6 for s in steps)
+    ptlog.log_information(
+        "profiled steps: %d; host syncs a step %d to %d; host wait %.3f to "
+        "%.3f ms a step", len(steps), syncs[0], syncs[-1], wait[0], wait[-1])
+    table = metrics.idle_by_span(prof.profiler.kineto_results.events(),
+                                 metrics.records())
+    ptlog.log_information(
+        "device idle ms by port span (last %d steps): %s",
+        min(len(steps), metrics.RAW_STEPS),
+        ", ".join(f"{n} {ms:.3f}" for n, ms in table.items()) or "none")
 
 
 def _render(args, device, sharded: bool) -> int:
@@ -533,6 +563,8 @@ def _render(args, device, sharded: bool) -> int:
         if device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=activities)
+        metrics.reset()
+        metrics.enable(ranges=True)
         prof.start()
 
     step = state.spp // config.samples_per_step
@@ -546,8 +578,10 @@ def _render(args, device, sharded: bool) -> int:
             while state.spp < config.samples_per_pixel:
                 if sigint:
                     raise KeyboardInterrupt
+                stats = {}
                 with metrics.Timer(device) as t:
-                    state = step_fn(state, scene, camera, config)
+                    state = step_fn(state, scene, camera, config,
+                                    stats=stats)
                     if pending is not None:
                         host, done, psnap_spp, do_file = pending
                         if done is not None:
@@ -566,7 +600,7 @@ def _render(args, device, sharded: bool) -> int:
                         step, state.spp)
                     return 2
                 mlog.record(_step_metrics(config, step, state.spp,
-                                          t.seconds))
+                                          t.seconds, stats))
                 if args.checkpoint and step % args.checkpoint_every == 0:
                     ckpt.save(args.checkpoint, state, config)
                 do_file = bool(args.snapshot_every
@@ -588,10 +622,12 @@ def _render(args, device, sharded: bool) -> int:
         finally:
             if prof is not None:
                 prof.stop()
+                metrics.disable()
                 os.makedirs(args.profile, exist_ok=True)
                 prof.export_chrome_trace(os.path.join(args.profile,
                                                       "trace.json"))
                 ptlog.log_information("profile trace in %s", args.profile)
+                _log_idle_by_span(prof)
 
     if args.checkpoint:
         ckpt.save(args.checkpoint, state, config)
