@@ -6,7 +6,9 @@ float32 reference on the pixels a run of the cell samples.
     python3 -m ptbench.calibrate --workload <cell> --seeds 1,2,3 --spp <n>
 
 ``--spp`` is the samples each sampled pixel holds at the end of a run's
-window (a progressive run's frames; an adaptive render's mean spp). Prints
+window (a progressive run's frames; an adaptive render's mean spp), or at
+a progressive run's snapshot (its traffic's ``check_spp``: the control's
+``off_share`` there is the upper reading of ``snapshot_off_share``). Prints
 one JSON line per seed. The benchmark's runs never run it; its readings
 set the upper end of each limit (PERF.md)."""
 

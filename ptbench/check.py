@@ -59,9 +59,9 @@ class Reference:
         self.light = self.orders[0]
         self.device = device
 
-    def sums(self, seed, pixels, spp, light=None, squares=False):
-        """(P, 3) sums over samples 0..spp-1 of each pixel (and of the
-        squared samples with ``squares``)."""
+    def sums(self, seed, pixels, spp, light=None, squares=False, first=0):
+        """(P, 3) sums over samples first..first+spp-1 of each pixel (and
+        of the squared samples with ``squares``)."""
         light = light or self.light
         c = self.config
         pixels = torch.as_tensor(pixels, device=self.device).long()
@@ -70,7 +70,7 @@ class Reference:
                                                      device=self.device), spp)
         starts = torch.cumsum(spp, 0) - spp
         sample = (torch.arange(owner.shape[0], device=self.device)
-                  - starts[owner])
+                  - starts[owner] + int(first))
         out = torch.zeros((pixels.shape[0], 3), dtype=torch.float32,
                           device=self.device)
         out2 = torch.zeros_like(out)

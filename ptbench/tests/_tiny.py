@@ -10,6 +10,7 @@ import time
 from ptbench import run, spec
 
 SEED = 2**33 + 1234567
+CHECK_SPP = 2
 
 
 def limits(loop="progressive"):
@@ -31,15 +32,19 @@ def overrides(side=32):
 
 
 def traffic_overrides(cell, pixels=48):
+    """The traffic's keys a tiny run replaces: fewer checked pixels, fewer
+    tiles, and the progressive snapshot a few frames in."""
     tiles = ({"tiles_per_round": 2, "budget_spp": 4}
              if cell.endswith("adaptive") else {})
-    return dict(tiles, check_pixels=pixels)
+    frames = ({"check_spp": CHECK_SPP} if cell.endswith(".progressive")
+              else {})
+    return dict(tiles, **frames, check_pixels=pixels)
 
 
 def run_tiny(cell, seconds=None, trace=False, root=spec.ROOT, seed=SEED,
-             bench=None):
+             bench=None, traffic=None):
     """A window of ``seconds`` (default: a few frames, or one adaptive
-    render)."""
+    render); ``traffic`` replaces keys of ``traffic_overrides``."""
     adaptive = cell.endswith("adaptive")
     if seconds is None:
         seconds = 0.0 if adaptive else 0.3
@@ -47,5 +52,40 @@ def run_tiny(cell, seconds=None, trace=False, root=spec.ROOT, seed=SEED,
     return run.run_cell(bench, cell, seed, seconds, trace, device="cpu",
                         overrides=overrides(side=16 if adaptive else 32),
                         root=root,
-                        traffic_overrides=traffic_overrides(cell),
+                        traffic_overrides=dict(traffic_overrides(cell),
+                                               **(traffic or {})),
                         t_start=time.perf_counter())
+
+
+def recording_answers(monkeypatch):
+    """A list that gets each run's ``answers`` (the loop module is loaded
+    anew for every run, so the wrapper goes in where it is looked up)."""
+    seen = []
+    real = spec.module
+
+    def module(kind, name, root=spec.ROOT):
+        mod = real(kind, name, root)
+        if kind == "loops":
+            answers = mod.answers
+
+            def kept(cell, ctx):
+                seen.append(answers(cell, ctx))
+                return seen[-1]
+
+            mod.answers = kept
+        return mod
+
+    monkeypatch.setattr(spec, "module", module)
+    return seen
+
+
+def run_until(cell, seen, spp, **kwargs):
+    """A tiny progressive run whose window ends holding ``spp`` samples or
+    more: its seconds doubled until it does. Returns the result and the
+    run's answers (``seen`` from ``recording_answers``)."""
+    seconds = 1.0
+    while True:
+        res = run_tiny(cell, seconds=seconds, **kwargs)
+        if seen[-1]["spp"] >= spp or seconds > 30:
+            return res, seen[-1]
+        seconds *= 2

@@ -78,6 +78,28 @@ FAULTS = {
 }
 
 
+def test_a_fault_after_the_snapshot_fails_the_final_limits(monkeypatch):
+    """The snapshot at the warm frame's one sample, then a window frame
+    that drops its samples: the final accumulator's limits fail."""
+    from pathtracing_tpu_torch.models import progressive
+
+    real = progressive.render_step
+
+    def step(state, *args, **kwargs):
+        late = state.spp >= 1
+        return (_unchanged_step if late else real)(state, *args, **kwargs)
+
+    monkeypatch.setattr(progressive, "render_step", step)
+    seen = _tiny.recording_answers(monkeypatch)
+    res = _tiny.run_tiny(PROGRESSIVE, seconds=0.0, traffic={"check_spp": 1})
+    assert seen[-1]["spp"] > seen[-1]["snapshot_spp"] == 1
+    limits = _tiny.limits()
+    got = {n: row["value"] for n, row in res["compared"].items()}
+    assert (got["median_gap"] > limits["median_gap"]
+            or got["off_share"] > limits["off_share"]), got
+    assert not res["correct"], res["compared"]
+
+
 @pytest.mark.parametrize("cell", [PROGRESSIVE, ADAPTIVE])
 def test_a_sound_tiny_run_is_correct(cell):
     res = _tiny.run_tiny(cell)
