@@ -84,6 +84,17 @@ Phases, in order; any failure exits non-zero:
                  (cell, octant) bins: kernel ms both ways, the binning's
                  own ms, and the binned results mapped back equal to the
                  unbinned ones (the tie contract for the closest hit).
+               * the counter-based generator (``csrc/rng.cu``, run first,
+                 right after the build): every public entry of
+                 ``ops/rng`` on the flagship's 1080p wave (every pixel id,
+                 the sample index as an int and per lane, every LD stream,
+                 ``n`` None to 25) bit for bit against its plain int64
+                 version on the card, each kernel's ms (CUDA events) beside
+                 its bytes over 3.35 TB/s; whether a fresh process finds
+                 the library built (``cuda_build.compiled_here("rng")``,
+                 False) and its load time; and the ``ptbench: set-up``
+                 parts of a run of ``cornell_mesh6.progressive`` after the
+                 build (a machine's second run).
                Each traversal kernel's bound counts the cluster
                evaluations its wave needs in any visiting order
                (``needed_evals``, a slab-test pass over the whole wave
@@ -1199,6 +1210,130 @@ def bench_check(engine="megakernel"):
     print(f"bench quick run ({engine}): {time.perf_counter() - t:.2f} s",
           flush=True)
     return line
+
+
+RNG_SEED = 2**33 + 5          # high 32 bits set
+RNG_SAMPLE = 17
+RNG_NS = (None, 1, 2, 3, 25)
+
+
+def _bit_equal(a, b):
+    """Whether two results (tensors or tuples of them) hold the same
+    bits, dtype and shape."""
+    import torch
+
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(_bit_equal, a, b))
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def _nbytes(*xs):
+    import torch
+
+    return sum(_nbytes(*x) if isinstance(x, tuple) else x.nbytes
+               for x in xs if isinstance(x, tuple) or torch.is_tensor(x))
+
+
+def rng_setup_run():
+    """The ``ptbench: set-up`` line and the library's state in processes
+    started after the build: one that loads ``csrc/rng.cu``'s library
+    (``compiled_here``, the load's ms), and a run of
+    ``cornell_mesh6.progressive`` (its window ends at the check's 128-spp
+    snapshot)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    code = ("import json, time\n"
+            "from pathtracing_tpu_torch.ops import cuda_build, rng\n"
+            "t = time.perf_counter()\n"
+            "cuda_build.load('rng', rng._SIGNATURES)\n"
+            "print(json.dumps({'compiled_here': "
+            "cuda_build.compiled_here('rng'), 'load_ms': "
+            "(time.perf_counter() - t) * 1e3}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise SmokeFailure(f"loading the rng library failed: {out.stderr}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    if res["compiled_here"]:
+        raise SmokeFailure("a process started after the build compiled "
+                           "csrc/rng.cu again")
+    run = subprocess.run(
+        [sys.executable, "-m", "ptbench.run", "--workload",
+         "cornell_mesh6.progressive", "--seed", str(RNG_SEED), "--seconds",
+         "1", "--trace", "0"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=600)
+    setup = [ln for ln in run.stderr.splitlines()
+             if ln.startswith("ptbench: set-up")]
+    if run.returncode != 0 or not setup:
+        raise SmokeFailure(f"ptbench exited {run.returncode}: "
+                           f"{run.stderr[-2000:]}")
+    line = json.loads(run.stdout.strip().splitlines()[-1])
+    res["ptbench_setup"] = setup[-1]
+    res["ptbench_setup_s"] = line["metrics"]["setup_s"]["value"]
+    res["ptbench_correct"] = line["correct"]
+    if not line["correct"]:
+        raise SmokeFailure(f"ptbench's check failed: {line['compared']}")
+    return res
+
+
+def rng_checks():
+    """Every public entry of ``ops/rng`` on the flagship's 1080p wave:
+    its kernel (CUDA tensors) against its plain int64 version on the same
+    tensors, bit for bit, timed (CUDA events) beside its bytes over
+    3.35 TB/s; then ``rng_setup_run``."""
+    import torch
+
+    from pathtracing_tpu_torch.ops import rng
+
+    t = phase("kernels vs plain: rng")
+    pix = torch.arange(WIDTH * HEIGHT, device=DEVICE)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    lane_sample = torch.randint(0, 2**31, pix.shape, generator=gen).to(
+        DEVICE)
+    keys = rng.pixel_sample_key_torch(RNG_SEED, pix, RNG_SAMPLE)
+    cases = [("key", (RNG_SEED, DEVICE)),
+             ("pixel_sample_key", (RNG_SEED, pix, RNG_SAMPLE)),
+             ("pixel_sample_key", (RNG_SEED, pix, lane_sample)),
+             ("fold_in", (keys, 3)), ("fold_in", (keys, -(2**31))),
+             ("fold_in", (keys[:1], pix)), ("fold_in", (keys, lane_sample)),
+             ("stream_key", (keys, 2, rng.STREAM_NEE))]
+    cases += [(name, (keys, n)) for name in ("random_bits", "uniform")
+              for n in RNG_NS]
+    cases += [(name, (RNG_SEED, pix, smp, tag))
+              for name, bases in (("ld_pair", rng._LD_PAIR_BASES),
+                                  ("ld_scalar", rng._LD_SCALAR_BASES))
+              for tag in sorted(bases) for smp in (RNG_SAMPLE, lane_sample)]
+    rows, bad = [], []
+    for name, args in cases:
+        kernel, plain = getattr(rng, name), getattr(rng, name + "_torch")
+        out = kernel(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        equal = _bit_equal(out, ref)
+        ms, _ = cuda_ms(lambda: kernel(*args), reps=KERNEL_REPS)
+        plain_ms, _ = cuda_ms(lambda: plain(*args))
+        nbytes = _nbytes(*args, out)
+        label = {"args": [a if not torch.is_tensor(a) else
+                         f"tensor{tuple(a.shape)}" for a in args[1:]]}
+        rows.append({"entry": name, **label, "equal": equal,
+                     "kernel_ms": ms, "bytes": nbytes,
+                     "bound_ms": nbytes / PEAK_BYTES * 1e3,
+                     "plain_ms": plain_ms})
+        print("rng " + json.dumps(rows[-1]), flush=True)
+        if not equal:
+            bad.append(f"{name} {label}")
+    if bad:
+        raise SmokeFailure("rng kernels against their plain version: "
+                           + "; ".join(bad))
+    setup = rng_setup_run()
+    print("rng setup " + json.dumps(setup), flush=True)
+    print(f"rng checks: {len(rows)} cases equal "
+          f"({time.perf_counter() - t:.2f} s)", flush=True)
+    return {"cases": rows, "setup": setup}
 
 
 def phase(name):
@@ -2761,6 +2896,7 @@ def run() -> dict:
           f" ({time.perf_counter() - t:.2f} s)", flush=True)
     ptxas = ptxas_report(libs)
     print("registers " + json.dumps(ptxas), flush=True)
+    rng_res = rng_checks()
 
     def config_for(background="black"):
         return RenderConfig(
@@ -3267,6 +3403,7 @@ def run() -> dict:
     print("bench " + json.dumps(bench), flush=True)
     print("bench wavefront " + json.dumps(bench_wave), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    print("rng " + json.dumps(rng_res), flush=True)
     print(card, flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": kind,
                                    "count": count}}

@@ -97,10 +97,10 @@ def test_cuda_sources_are_not_built_on_import():
     assert sorted(os.listdir(cuda_build.CSRC)) == [
         "bvh_builder.cpp", "cluster_common.cuh", "cluster_trace.cu",
         "cluster_trace_inst.cu", "cluster_trace_paged.cu",
-        "cluster_trace_tree.cu", "cluster_walk.cuh", "pgather.cu"]
+        "cluster_trace_tree.cu", "cluster_walk.cuh", "pgather.cu", "rng.cu"]
     assert cuda_build.sources() == ["cluster_trace", "cluster_trace_inst",
                                     "cluster_trace_paged",
-                                    "cluster_trace_tree", "pgather"]
+                                    "cluster_trace_tree", "pgather", "rng"]
     with open(os.path.join(ROOT, ".gitignore")) as f:
         assert "pathtracing_tpu_torch/.build/" in f.read().split()
 

@@ -4,8 +4,15 @@ Keys, ``fold_in``, ``uniform`` and the per-stream-prime Halton draws must
 give the same 32-bit words as ``jax.random`` under
 ``jax_threefry_partitionable=True`` (pinned in conftest), for many
 (seed, pixel, sample, bounce, stream) tuples. Tolerance: none — the
-comparisons are on the bit patterns.
+comparisons are on the bit patterns. CPU tensors take the plain version
+and never load the CUDA kernels of ``csrc/rng.cu``; the module imports and
+draws without ``nvcc``.
 """
+
+import os
+import re
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +21,7 @@ import pytest
 import torch
 
 from pathtracing_tpu.ops import rng as jrng
+from pathtracing_tpu_torch.ops import cuda_build
 from pathtracing_tpu_torch.ops import rng as trng
 
 torch.set_num_threads(2)
@@ -21,6 +29,7 @@ torch.set_num_threads(2)
 SEEDS = [0, 7, 2**31 + 12345]
 SAMPLES = [0, 1, 5, 1023, 65537]
 PIXELS = np.random.RandomState(0).randint(0, 1920 * 1080, 96)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _bits(x):
@@ -102,3 +111,75 @@ def test_per_ray_sample_index_matches_scalar():
     for i in range(8):
         b, _ = trng.ld_pair(0, pix[i:i + 1], int(ss[i]), trng.STREAM_NEE)
         assert _bits(a[i:i + 1]) == _bits(b)
+
+
+@pytest.mark.parametrize("n", [None, 1, 3, 25])
+def test_random_bits_bits(n):
+    kj, kt = _jax_keys(2**31 + 12345, 5), _torch_keys(2**31 + 12345, 5)
+    shape = () if n is None else (n,)
+    bj = jax.vmap(lambda k: jax.random.bits(k, shape, jnp.uint32))(kj)
+    bt = trng.random_bits(kt, n)
+    assert bt.dtype == torch.int64
+    np.testing.assert_array_equal(np.asarray(bj).astype(np.int64), bt.numpy())
+
+
+# --- The two routes: CPU tensors take the plain version ----------------------
+
+
+@pytest.fixture
+def no_library(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU tensor loaded the RNG kernels")
+
+    monkeypatch.setattr(cuda_build, "load", refuse)
+
+
+@pytest.mark.parametrize("check", [
+    lambda: test_pixel_sample_key_bits(2**31 + 12345, 65537),
+    lambda: test_stream_uniform_bits(7, 1, trng.STREAM_NEE),
+    test_fold_in_wraps_negative_data,
+    lambda: test_random_bits_bits(3),
+    lambda: test_ld_pair_bits(7, 1023, trng.STREAM_LENS),
+    lambda: test_ld_scalar_bits(0, trng.STREAM_TIME),
+    test_per_ray_sample_index_matches_scalar,
+], ids=["pixel_sample_key", "stream_key_uniform", "key_fold_in",
+        "random_bits", "ld_pair", "ld_scalar", "ld_per_ray"])
+def test_cpu_tensors_never_load_the_kernels(no_library, check):
+    """Every public entry on CPU tensors gives the JAX bits with the
+    library's loader refusing."""
+    check()
+
+
+def test_rng_imports_and_draws_without_nvcc(tmp_path):
+    path = os.pathsep.join(
+        d for d in os.environ.get("PATH", "").split(os.pathsep)
+        if not os.path.exists(os.path.join(d, "nvcc")))
+    env = dict(os.environ, PATH=path, CUDA_HOME=str(tmp_path / "none"))
+    code = ("from pathtracing_tpu_torch.ops import cuda_build, rng\n"
+            "try:\n    cuda_build.nvcc_path()\n"
+            "except RuntimeError:\n    pass\n"
+            "else:\n    raise SystemExit('found nvcc')\n"
+            "print(rng.uniform(rng.key(3), 2).tolist())\n")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == str(
+        trng.uniform(trng.key(3), 2).tolist()).split()
+
+
+def test_rng_source_is_built_like_the_others():
+    assert "rng" in cuda_build.sources()
+    path = cuda_build._library_path("rng")
+    assert path == cuda_build._library_path("rng")
+    assert os.path.dirname(path) == cuda_build.BUILD_DIR
+    assert os.path.basename(path).startswith("librng-")
+    assert {"arch=compute_90a,code=sm_90a", "--fmad=false"} <= set(
+        cuda_build.NVCC_FLAGS)
+    with open(os.path.join(cuda_build.CSRC, "rng.cu")) as f:
+        src = f.read()
+    # Self-contained, with a plain C interface.
+    assert re.findall(r"#include\s*(\S+)", src) == ["<cuda_runtime.h>",
+                                                    "<cstdint>"]
+    assert 'extern "C"' in src
+    assert set(re.findall(r"\bint (ptpu_\w+)\(", src)) == set(
+        trng._SIGNATURES)
