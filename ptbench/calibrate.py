@@ -1,7 +1,9 @@
 """The control of the check: the plain reference put in the program's
 place and computed in bfloat16 (the nearest precision below the float32
 the configurations state), compared by the check's own numbers with the
-float32 reference on the pixels a run of the cell samples.
+float32 reference on the pixels a run of the cell samples. Both are built
+as the check builds its reference (``check.reference_of``: the scene
+module's own where it brings one).
 
     python3 -m ptbench.calibrate --workload <cell> --seeds 1,2,3 --spp <n>
 
@@ -34,9 +36,9 @@ def control_numbers(bench, name, seed, spp, device, overrides=None,
     config.update(overrides or {})
     scene_mod = spec.module("scenes", config["scene"])
     data = scene_mod.scene_data(config)
-    tris = scene_mod.triangles(data)
-    ref = check.Reference(data, tris, config, device)
-    low = check.Reference(data, tris, config, device, dtype=torch.bfloat16)
+    ref = check.reference_of(scene_mod, data, config, device)
+    low = check.reference_of(scene_mod, data, config, device,
+                             dtype=torch.bfloat16)
     pix = check.sample_pixels(seed, config["width"] * config["height"],
                               pixels or spec.traffic_file(entry)[
                                   "check_pixels"])

@@ -46,14 +46,17 @@ def gap_numbers(prog, want, spp) -> dict:
 
 class Reference:
     """The reference of one scene: geometry, lights in each order, and
-    the render settings; sums the paths of (pixel, spp) lists."""
+    the render settings; sums the paths of (pixel, spp) lists. The
+    geometry is the flat one of ``triangles`` unless ``geo`` is given
+    (``triangles`` then holds the emitters, with any other base
+    triangles)."""
 
     def __init__(self, data, triangles, config, device,
-                 dtype=torch.float32):
+                 dtype=torch.float32, geo=None):
         v0, e1, e2, mat = triangles
         self.data = data
         self.config = config
-        self.geo = pathtrace.prepare(v0, e1, e2, mat, device, dtype)
+        self.geo = geo or pathtrace.prepare(v0, e1, e2, mat, device, dtype)
         self.orders = pathtrace.light_orders(v0, e1, e2, mat,
                                              data["materials"], device, dtype)
         self.light = self.orders[0]
@@ -97,6 +100,15 @@ class Reference:
             if best is None or g < best[0]:
                 best = (g, light)
         self.light = best[1]
+
+
+def reference_of(scene_mod, data, config, device, dtype=torch.float32):
+    """The plain reference of a scene: the scene module's own, where it
+    brings one (``reference(data, config, device, dtype)``), else the flat
+    reference of its ``triangles(data)``."""
+    if hasattr(scene_mod, "reference"):
+        return scene_mod.reference(data, config, device, dtype=dtype)
+    return Reference(data, scene_mod.triangles(data), config, device, dtype)
 
 
 def sample_pixels(seed: int, n_pixels: int, count: int, salt: int = 0):

@@ -16,7 +16,10 @@ path here is the program's path for the same (pixel, sample).
 Intersection is Moller-Trumbore over the benchmark's own triangle arrays,
 after a cull by boxes of Morton-ordered groups of triangles; it shares
 nothing with the port's trees, clusters or pages. Hits lie in
-(``T_MIN``, t_max), the program's self-intersection rule.
+(``T_MIN``, t_max), the program's self-intersection rule. ``render``
+takes its hits from the geometry object (``closest`` and ``surface``):
+``Geometry`` holds flat triangles, ``instanced.Instanced`` placements of
+prototypes.
 
 ``dtype`` is the float type of every float computation: float32 is the
 reference, bfloat16 the control (the nearest precision below the one the
@@ -99,6 +102,13 @@ class Geometry:
     mat: torch.Tensor         # (T,) material id
     dtype: torch.dtype
 
+    def closest(self, o, d, t_max):
+        return closest(self, o, d, t_max)
+
+    def surface(self, row):
+        """(unit geometric normal, material id) of hit rows (>= 0)."""
+        return self.normal[row], self.mat[row]
+
 
 def _morton(p):
     q = np.clip((p * 1023.0).astype(np.int64), 0, 1023)
@@ -112,13 +122,16 @@ def _morton(p):
     return spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
 
 
-def prepare(v0, e1, e2, mat, device, dtype=torch.float32, group=128):
-    """Geometry of float32 triangle arrays (v0, e1, e2: (T, 3); mat: (T,))."""
+def prepare(v0, e1, e2, mat, device, dtype=torch.float32, group=128,
+            big_ratio=64.0):
+    """Geometry of float32 triangle arrays (v0, e1, e2: (T, 3); mat: (T,)).
+    Triangles whose box diagonal passes ``big_ratio`` times the median
+    are tested by every ray, outside the groups."""
     v0, e1, e2 = (np.asarray(x, np.float32) for x in (v0, e1, e2))
     corners = np.stack([v0, v0 + e1, v0 + e2], axis=1)
     lo, hi = corners.min(axis=1), corners.max(axis=1)
     diag = np.linalg.norm(hi - lo, axis=1)
-    big = diag > 64.0 * np.median(diag)
+    big = diag > big_ratio * np.median(diag)
     n = np.cross(e1, e2)
     norm = np.linalg.norm(n, axis=1, keepdims=True)
     normal = (n / np.maximum(norm, 1e-20)).astype(np.float32)
@@ -293,11 +306,13 @@ def camera_frame(camera: dict, aspect: float):
             (2.0 * half_h * v).astype(np.float32))
 
 
-def render(geo: Geometry, lights: Lights, materials, camera: dict,
+def render(geo, lights: Lights, materials, camera: dict,
            width: int, height: int, max_depth: int, seed: int, pixel,
            sample):
     """Radiance (R, 3) float32 of the paths (``pixel``, ``sample``): flat
-    row-major pixel ids and global sample ids, (R,) int64 tensors."""
+    row-major pixel ids and global sample ids, (R,) int64 tensors.
+    ``geo`` gives ``dtype``, ``closest(o, d, t_max) -> (t, row)`` (row -1
+    on a miss) and ``surface(row) -> (unit normal, material id)``."""
     dt = geo.dtype
     dev = pixel.device
     r = pixel.shape[0]
@@ -335,15 +350,14 @@ def render(geo: Geometry, lights: Lights, materials, camera: dict,
     n_lights = lights.cum.shape[0]
     for depth in range(max_depth):
         t_cap = torch.where(active, 3.0e38, 0.0).to(dt)
-        t_hit, row = closest(geo, o, d, t_cap)
+        t_hit, row = geo.closest(o, d, t_cap)
         valid = active & (row >= 0)
-        safe = torch.clamp(row, min=0)
-        n_geo = geo.normal[safe]
+        n_geo, row_mat = geo.surface(torch.clamp(row, min=0))
         front = _dot(d, n_geo) < 0.0
         normal = torch.where(front[:, None], n_geo, -n_geo)
         t_hit = torch.where(valid, t_hit, 0.0)
         pos = o + t_hit[:, None] * d
-        mat = torch.where(valid, geo.mat[safe], 0)
+        mat = torch.where(valid, row_mat, 0)
         alb, emit = albedo[mat], emit_tab[mat]
         is_diffuse = diffuse[mat]
 
@@ -382,7 +396,7 @@ def render(geo: Geometry, lights: Lights, materials, camera: dict,
         cand = (valid & is_diffuse & (cos_s > 1e-6) & (cos_ln > 1e-6)
                 & (dist2 > 1e-8))
         t_shadow = torch.where(cand, dist * (1.0 - 1e-3), 0.0)
-        t_occ, _ = closest(geo, pos, wi, t_shadow)
+        t_occ, _ = geo.closest(pos, wi, t_shadow)
         vis = cand & ~(t_occ < t_shadow)
         pdf_b = cos_s * INV_PI
         pdf_ln = dist2 * llum / (cos_ln * total_power + 1e-20)

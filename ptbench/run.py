@@ -129,7 +129,7 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool,
 
     found = forbidden_modules()
     t0 = time.perf_counter()
-    ref = check.Reference(data, scene_mod.triangles(data), config, device)
+    ref = check.reference_of(scene_mod, data, config, device)
     numbers = loop.compare(ref, answers, config, traffic, seed)
     sync()
     print(f"ptbench: the check took {time.perf_counter() - t0:.1f} s",

@@ -19,11 +19,17 @@ def limits(loop="progressive"):
 
 def with_parked(bench, root=spec.ROOT):
     """``bench`` with the cells of ``ptbench/parked.json`` (measured, and
-    taken out of ``BENCHMARK.json``) and their metrics added back."""
+    taken out of ``BENCHMARK.json``) and their metrics added back: each
+    cell also joins the ``workloads`` of the metrics it is
+    ``reported_by``."""
     bench = copy.deepcopy(bench)
     parked = spec.read_json(root, os.path.join("ptbench", "parked.json"))
     for key in ("workloads", "end_to_end", "per_layer"):
         bench[key] += parked[key]
+    for cell, names in parked.get("reported_by", {}).items():
+        for m in bench["end_to_end"] + bench["per_layer"]:
+            if m["name"] in names:
+                m["workloads"].append(cell)
     return bench
 
 
@@ -33,11 +39,11 @@ def overrides(side=32):
 
 def traffic_overrides(cell, pixels=48):
     """The traffic's keys a tiny run replaces: fewer checked pixels, fewer
-    tiles, and the progressive snapshot a few frames in."""
+    tiles, and the frames' snapshot a few frames in."""
     tiles = ({"tiles_per_round": 2, "budget_spp": 4}
              if cell.endswith("adaptive") else {})
-    frames = ({"check_spp": CHECK_SPP} if cell.endswith(".progressive")
-              else {})
+    frames = ({"check_spp": CHECK_SPP}
+              if cell.endswith((".progressive", ".wavefront")) else {})
     return dict(tiles, **frames, check_pixels=pixels)
 
 

@@ -10,6 +10,7 @@ from ptbench.tests import _tiny
 
 PROGRESSIVE = "cornell_mesh6.progressive"
 ADAPTIVE = "cornell_mesh6.adaptive"
+WAVEFRONT = "cornell_mesh6.wavefront"
 
 
 @pytest.mark.parametrize("seed", [2**31 + 5, 2**34 + 17, 3])
@@ -41,6 +42,21 @@ def _unchanged_step(state, scene, camera, config, stats=None):
                                    state.seed)
 
 
+def _unchanged_wavefront_step(state, scene, camera, config, stats=None):
+    """The wavefront's step rendered into a scratch image: the state
+    comes back as it was, but for its sample count."""
+    from pathtracing_tpu_torch.models import progressive, wavefront
+
+    scratch = torch.zeros_like(state.accum)
+    wavefront.render_wave(scene, camera, config, scratch.view(-1, 3),
+                          sample_start=state.spp,
+                          n_samples=config.samples_per_step, seed=state.seed,
+                          stats=stats)
+    return progressive.RenderState(state.accum,
+                                   state.spp + config.samples_per_step,
+                                   state.seed)
+
+
 def _unchanged_tile_step(state, *args, **kwargs):
     return state
 
@@ -51,6 +67,20 @@ def _half_batch(fn):
         return torch.where((torch.arange(rad.shape[0]) % 2 == 0)[:, None],
                            rad, 0.0)
     return traced
+
+
+def _half_deposit(fn):
+    def deposit(accum_flat, pixel, value, unique):
+        keep = (torch.arange(value.shape[0]) % 2 == 0)[:, None]
+        return fn(accum_flat, pixel, torch.where(keep, value, 0.0), unique)
+    return deposit
+
+
+def _altered_deposit(fn):
+    def deposit(accum_flat, pixel, value, unique):
+        return fn(accum_flat, pixel, value + torch.tensor([0.0, 1e-3, 0.0]),
+                  unique)
+    return deposit
 
 
 def _altered(fn):
@@ -67,13 +97,17 @@ def _worst_k(scores, k):
 FAULTS = {
     "state_unchanged": {
         PROGRESSIVE: ("progressive", "render_step", lambda f: _unchanged_step),
-        ADAPTIVE: ("adaptive", "tile_step", lambda f: _unchanged_tile_step)},
+        ADAPTIVE: ("adaptive", "tile_step", lambda f: _unchanged_tile_step),
+        WAVEFRONT: ("wavefront", "render_step",
+                    lambda f: _unchanged_wavefront_step)},
     "half_the_batch": {
         PROGRESSIVE: ("megakernel", "_trace_pixels", _half_batch),
-        ADAPTIVE: ("megakernel", "_trace_pixels", _half_batch)},
+        ADAPTIVE: ("megakernel", "_trace_pixels", _half_batch),
+        WAVEFRONT: ("wavefront", "_deposit", _half_deposit)},
     "answer_altered": {
         PROGRESSIVE: ("megakernel", "render_samples", _altered),
-        ADAPTIVE: ("megakernel", "render_samples", _altered)},
+        ADAPTIVE: ("megakernel", "render_samples", _altered),
+        WAVEFRONT: ("wavefront", "_deposit", _altered_deposit)},
     "wrong_picks": {ADAPTIVE: ("adaptive", "top_k", lambda f: _worst_k)},
 }
 
@@ -100,7 +134,7 @@ def test_a_fault_after_the_snapshot_fails_the_final_limits(monkeypatch):
     assert not res["correct"], res["compared"]
 
 
-@pytest.mark.parametrize("cell", [PROGRESSIVE, ADAPTIVE])
+@pytest.mark.parametrize("cell", [PROGRESSIVE, ADAPTIVE, WAVEFRONT])
 def test_a_sound_tiny_run_is_correct(cell):
     res = _tiny.run_tiny(cell)
     assert res["correct"], res["compared"]

@@ -58,11 +58,17 @@ def test_reference_follows_the_ports_paths():
 
 def test_reference_imports_nothing_of_the_port():
     code = ("import sys\n"
-            "import ptbench.check, ptbench.calibrate\n"
-            "from ptbench.reference import pathtrace, schedule, streams\n"
-            "from ptbench.scenes import cornell_mesh\n"
+            "import ptbench.check, ptbench.calibrate, ptbench.reftime\n"
+            "from ptbench.reference import (instanced, pathtrace, schedule,\n"
+            "                               streams)\n"
+            "from ptbench.scenes import cornell_mesh, instanced_field\n"
             "d = cornell_mesh.scene_data({'subdivisions': 1})\n"
             "cornell_mesh.triangles(d)\n"
+            "c = {'grid': 2, 'subdivisions': 1, 'radius': 0.45,\n"
+            "     'spacing': 1.5, 'placement_seed': 7, 'width': 8,\n"
+            "     'height': 8, 'max_depth': 2}\n"
+            "d = instanced_field.scene_data(c)\n"
+            "instanced_field.reference(d, c, 'cpu').sums(1, [0, 9], [1, 1])\n"
             "bad = sorted({m.split('.')[0] for m in sys.modules}\n"
             "             & {'pathtracing_tpu_torch', 'pathtracing_tpu',\n"
             "                'jax', 'jaxlib', 'flax'})\n"
