@@ -84,6 +84,14 @@ Phases, in order; any failure exits non-zero:
                  (cell, octant) bins: kernel ms both ways, the binning's
                  own ms, and the binned results mapped back equal to the
                  unbinned ones (the tie contract for the closest hit).
+               * the instanced field (row 10): 64 x 64 placements of the
+                 81,920-triangle icosphere (``ptbench.scenes.
+                 instanced_field``), past the flat budget, so the two-level
+                 walks: both kernels bit for bit against their plain walks
+                 on a wave aimed at every placement and its shadow wave,
+                 and on the field's 1080p camera, bounce and shadow waves
+                 (the plain walks on 65,549 rays of each), timed with their
+                 bounds, then a timed render of the field.
                * the counter-based generator (``csrc/rng.cu``, run first,
                  right after the build): every public entry of
                  ``ops/rng`` on the flagship's 1080p wave (every pixel id,
@@ -338,7 +346,16 @@ EXAMPLE_SCENES = ("cornell.json", "motion.json", "outdoor.json",
 ROUTE_COUNTERS = {"flat": ("trace", "occluded"),
                   "instanced": ("trace_inst", "occluded_inst"),
                   "paged": ("trace_paged_dnf", "occluded_paged_dnf"),
-                  "tree": ("trace_tree", "occluded_tree")}
+                  "tree": ("trace_tree", "occluded_tree"),
+                  "inst_tree": ("trace_inst_tree", "occluded_inst_tree")}
+# The instanced field of the benchmark's generator
+# (ptbench/scenes/instanced_field.py): 64 x 64 placements of the
+# 81,920-triangle icosphere, whose static placements past the flat budget
+# take the two-level walks (row 10); and the bytes of one placement's
+# record: the transform 48, the root 4, the override 4, the world box 24.
+FIELD = {"grid": 64, "subdivisions": 6, "radius": 0.45, "spacing": 1.5,
+         "placement_seed": 7}
+PLACEMENT_BYTES = 80
 # Profiler ranges put around the attribute resolve and the texture lookups,
 # or around the voxel-grid walks, for a profiled step (``profiler_ranges``).
 RANGE_PREFIX = "ranges:"
@@ -1559,6 +1576,160 @@ def big_scene_checks(camera, config, failures):
     return {"scene": scene, "flat": flat, "results": results,
             "n_real": n_real, "n_pages": n_pages, "page_nodes": page_nodes,
             "n_flat": n_flat, "n_nodes": n_nodes}
+
+
+def field_checks(card, failures):
+    """Row 10 on the instanced field (``FIELD``, built through
+    ``ptbench.scenes.instanced_field`` as the benchmark builds a scene):
+    both two-level kernels bit for bit against their plain walks on a wave
+    aimed at every placement (one camera ray to each placement's centre and
+    that ray's shadow ray to the light's centre) and on the field's
+    1080p waves (camera, bounce and both shadow waves; the plain walks on
+    ``BIG_SUBSET`` rays of each); each kernel's ms, its bound (the
+    prototype clusters its rays need, counted by the plain walk capped at
+    the final t on the held rays and scaled to the wave's live rays) and
+    its launches a step in a timed render. Returns the row's entries."""
+    import numpy as np
+    import torch
+
+    from pathtracing_tpu_torch.ops import cluster_trace as ct
+    from pathtracing_tpu_torch.ops.camera import build_camera
+    from pathtracing_tpu_torch.utils.config import CameraConfig, RenderConfig
+    from ptbench.scenes import instanced_field
+
+    t = phase("kernels vs plain: the instanced field")
+    data = instanced_field.scene_data(FIELD)
+    scene = instanced_field.build_port(data, DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    cl, it = scene.clusters, scene.inst_tree
+    if it is None:
+        raise SmokeFailure("the instanced field did not take the two-level "
+                           "route")
+    n_place, n_clusters = int(it.xform.shape[0]), int(cl.woop.shape[0])
+    n_nodes = int(it.node_box.shape[1] + it.forest_box.shape[1])
+    print(f"instanced field: {n_place} placements (the base geometry's "
+          f"first), {n_clusters} clusters stored, {n_nodes} tree nodes; "
+          f"built in {build_s:.3f} s", flush=True)
+    camera = build_camera(CameraConfig(**data["camera"]), WIDTH / HEIGHT,
+                          device=DEVICE)
+    config = RenderConfig(width=WIDTH, height=HEIGHT,
+                          samples_per_pixel=TIMED_STEPS + 1, max_depth=DEPTH,
+                          samples_per_step=1, seed=0, engine="megakernel",
+                          nee=True, sampler="ld", background="black")
+
+    def tk(o, d, cap):
+        return ct.trace_inst_tree(cl, it, o, d, cap)
+
+    def ok(o, d, cap):
+        return ct.occluded_inst_tree(cl, it, o, d, cap)
+
+    def tp(o, d, cap, stats):
+        return ct.trace_inst_tree_torch(cl, it, o, d, cap, stats=stats)
+
+    def op(o, d, cap, stats):
+        return ct.occluded_inst_tree_torch(cl, it, o, d, cap, stats=stats)
+
+    def needed(wave, t_final, occluded=None):
+        """Prototype-cluster evaluations of the wave's held rays that any
+        visiting order needs (the plain walk with best t fixed at the
+        final t, or the cap of an unoccluded shadow ray, and one for an
+        occluded one), scaled to the wave's live rays."""
+        o, d, cap = wave[:3]
+        live = cap > 0
+        if occluded is not None:
+            fixed = torch.where(occluded, 0.0, cap)
+        else:
+            fixed = torch.where(live, t_final, 0.0)
+        stats = {}
+        ct.trace_inst_tree_torch(cl, it, o, d, fixed, stats=stats)
+        n = stats["cluster_evals"]
+        if occluded is not None:
+            n += int(occluded.sum())
+        return n
+
+    results = {"trace_inst_tree": {}, "occluded_inst_tree": {}}
+    # Every placement's wave.
+    eye = torch.tensor(data["camera"]["position"], dtype=torch.float32)
+    centres = torch.tensor(np.array([m[:, 3] for m, _ in
+                                     data["placements"]]),
+                           dtype=torch.float32)
+    d = centres - eye
+    d = (d / torch.linalg.norm(d, dim=1, keepdim=True)).to(DEVICE)
+    o = eye.expand_as(d).contiguous().to(DEVICE)
+    wave = (o, d, torch.full((o.shape[0],), 3.0e38, device=DEVICE))
+    res = check_trace(tk, tp, wave, strict=True, normal_tol=0.0,
+                      chunk=o.shape[0])
+    t_hit = tk(*wave)[0]
+    res["needed_evals"] = needed(wave, t_hit)
+    pos = o + t_hit[:, None] * d
+    own = ((pos >= it.aabb_min[1:]) & (pos <= it.aabb_max[1:])).all(dim=1)
+    res["own_placement_hits"] = int(own.sum())
+    results["trace_inst_tree"]["placements"] = res
+    report("trace_inst_tree", res, failures, wave="placements")
+    corner, eu, ev, _ = data["quads"][1]
+    light = torch.tensor(np.asarray(corner) + 0.5 * (np.asarray(eu)
+                                                     + np.asarray(ev)),
+                         dtype=torch.float32, device=DEVICE)
+    wi = light - pos
+    dist = torch.linalg.norm(wi, dim=1)
+    shadow = (pos, wi / dist[:, None],
+              torch.where(t_hit < 1e37, dist * (1.0 - 1e-3), 0.0))
+    res = check_occluded(ok, op, shadow, chunk=o.shape[0])
+    res["needed_evals"] = needed(shadow, None, ok(*shadow))
+    results["occluded_inst_tree"]["placements_shadow"] = res
+    report("occluded_inst_tree", res, failures, wave="placements_shadow")
+    # The field's 1080p waves.
+    waves = make_waves(scene, camera, config)
+    n_wave = waves["camera"][0].shape[0]
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    sub = torch.randperm(n_wave, generator=gen)[:BIG_SUBSET].sort().values
+    sub = sub.to(DEVICE)
+    for wname, wave in waves.items():
+        held = held_rays(wave, sub)
+        scale = float((wave[2] > 0).sum()) / max(float((held[2] > 0).sum()),
+                                                 1.0)
+        if wname.endswith("shadow"):
+            name = "occluded_inst_tree"
+            res = check_occluded(ok, op, wave, chunk=BIG_SUBSET, sub=sub)
+            res["needed_evals"] = round(needed(held, None,
+                                               ok(*held)) * scale)
+        else:
+            name = "trace_inst_tree"
+            res = check_trace(tk, tp, wave, strict=True, normal_tol=0.0,
+                              chunk=BIG_SUBSET, sub=sub)
+            res["needed_evals"] = round(needed(held, tk(*held)[0]) * scale)
+        results[name][wname] = res
+        report(name, res, failures, wave=wname)
+    del waves
+    _, launches = timed_render("instanced_field64", scene, camera, config,
+                               card, ("trace_inst_tree_kernel",
+                                      "occluded_inst_tree_kernel"))
+    check_routes("instanced_field64", launches, ROUTE_COUNTERS["inst_tree"])
+    # The query's tables: the clusters' Woop rows (with normal and
+    # material for the closest hit), the placement records and the nodes
+    # of both levels; the trees are the walk's cost, but without them the
+    # placements cannot be found.
+    entries = []
+    for name, main, ray_bytes, per_cluster in (
+            ("trace_inst_tree", "bounce", 52,
+             WOOP_BYTES + NORMAL_BYTES + MAT_BYTES),
+            ("occluded_inst_tree", "bounce_shadow", 29, WOOP_BYTES)):
+        table = (n_clusters * per_cluster + n_place * PLACEMENT_BYTES
+                 + n_nodes * NODE_BYTES)
+        entries.append(kernel_entry(
+            name, name + "_kernel",
+            "pathtracing_tpu_torch/csrc/cluster_trace_inst_tree.cu",
+            "none (the JAX package expands every placement)",
+            launches[name] / TIMED_STEPS, results[name], main,
+            lambda r, rb=ray_bytes, tb=table: bound_ms(
+                r["needed_evals"], r["rays"], n_clusters, rb,
+                table_bytes=tb),
+            plain_rays=BIG_SUBSET, build_s=build_s,
+            design="two-level walk on the shared walker "
+                   "(cluster_walk.cuh warp_walk, TwoLevel policy)",
+            plain=name + "_torch"))
+    return entries
 
 
 def big_entries(big, big_launches, tree_launches, paged_by_scene):
@@ -3070,6 +3241,7 @@ def run() -> dict:
     if scene_mod.cluster_route(tree_scene) != "tree":
         raise SmokeFailure("the unpaged big scene does not route to the tree")
     binning = binning_ab(tree_scene, camera, config, failures)
+    field = field_checks(card, failures)
     if failures:
         raise SmokeFailure("kernel disagrees with its plain version: "
                            + "; ".join(failures))
@@ -3354,6 +3526,7 @@ def run() -> dict:
     kernels += big_entries(big, big_launches, tree_launches, {
         key: {big_label: big_launches[key], tb_label: tb_launches[key]}
         for key in paged_routes})
+    kernels += field
     # The launch counters' names of rows 1-6 and the small wavefront
     # renders that drive them.
     counter = {"trace_dnf": "trace", "occluded_dnf": "occluded",

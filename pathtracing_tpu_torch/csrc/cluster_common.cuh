@@ -1,11 +1,13 @@
 // Shared device helpers of the cluster traversal kernels
 // (cluster_trace.cu: flat scenes; cluster_trace_inst.cu: instanced scenes;
+// cluster_trace_inst_tree.cu: two-level instanced scenes;
 // cluster_trace_paged.cu: paged scenes; cluster_trace_tree.cu: the
 // cluster-tree walks): the ray record, the safe reciprocal, the direction
 // octant, the shared-memory box staging, the slab test, the Woop triangle
-// test, the closest hit and any hit of rays within one cluster on the whole
-// warp, and the two epilogues of a closest hit (normal from the cluster
-// table, or from the winner's Woop w-row). The tree walker is in
+// test, a ray's move into an instance's object space, the closest hit and
+// any hit of rays within one cluster on the whole warp, and the two
+// epilogues of a closest hit (normal from the cluster table, or from the
+// winner's Woop w-row). The tree walker is in
 // cluster_walk.cuh. Every multiply and add is written in the order of the
 // plain torch versions (ops/cluster_trace.py: _slab, _pair_eval) and the
 // sources are built with --fmad=false, so a kernel's t equals its plain
@@ -156,6 +158,28 @@ __device__ __forceinline__ float woop_test(const WoopTri& tri, const Ray& r,
   const bool ok = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
                   (t > kTMin) && (t < cap);
   return ok ? t : kBig;
+}
+
+// A ray in an instance's object space (_ray_to_object of
+// ops/cluster_trace.py) by its 12 world->object scalars xf [L00..L22
+// row-major, tr0..tr2]: o' = tr + L0 o0 + L1 o1 + L2 o2 added left to
+// right, d' = L0 d0 + L1 d1 + L2 d2; t keeps its world parameterization.
+// `inv` is not used by the Woop test and stays 0 (the two-level walk sets
+// it for its slab tests).
+__device__ __forceinline__ Ray to_object(const float* xf, const Ray& r) {
+  Ray q = {};
+#pragma unroll
+  for (int row = 0; row < 3; ++row) {
+    float o = xf[9 + row] + xf[3 * row] * r.o[0];
+    o = o + xf[3 * row + 1] * r.o[1];
+    o = o + xf[3 * row + 2] * r.o[2];
+    float d = xf[3 * row] * r.d[0];
+    d = d + xf[3 * row + 1] * r.d[1];
+    d = d + xf[3 * row + 2] * r.d[2];
+    q.o[row] = o;
+    q.d[row] = d;
+  }
+  return q;
 }
 
 // --- The whole warp on one (ray, cluster) pair -------------------------

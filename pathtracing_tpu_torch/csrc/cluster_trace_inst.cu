@@ -132,25 +132,6 @@ __device__ __forceinline__ void load_xform(float* xf,
   }
 }
 
-// The ray in object space (_ray_to_object): o' = tr + L0 o0 + L1 o1 + L2 o2
-// added left to right, d' = L0 d0 + L1 d1 + L2 d2. `inv` is not used by the
-// Woop test and stays 0.
-__device__ __forceinline__ Ray to_object(const float* xf, const Ray& r) {
-  Ray q = {};
-#pragma unroll
-  for (int row = 0; row < 3; ++row) {
-    float o = xf[9 + row] + xf[3 * row] * r.o[0];
-    o = o + xf[3 * row + 1] * r.o[1];
-    o = o + xf[3 * row + 2] * r.o[2];
-    float d = xf[3 * row] * r.d[0];
-    d = d + xf[3 * row + 1] * r.d[1];
-    d = d + xf[3 * row + 2] * r.d[2];
-    q.o[row] = o;
-    q.d[row] = d;
-  }
-  return q;
-}
-
 template <bool kMotion>
 __global__ void __launch_bounds__(kBlock)
 trace_dnf_inst_kernel(const float* __restrict__ origin,

@@ -1,9 +1,10 @@
 // The warp-cooperative cluster-tree walker and the two kernel bodies on
 // it, shared by every traversal kernel that walks a tree: both kernels of
-// flat scenes (cluster_trace.cu), of paged scenes (cluster_trace_paged.cu)
-// and of the tree route past the flat budget (cluster_trace_tree.cu: the
+// flat scenes (cluster_trace.cu), of paged scenes (cluster_trace_paged.cu),
+// of the tree route past the flat budget (cluster_trace_tree.cu: the
 // closest hit and any hit over the unpaged set's tree, and the closest hit
-// over each page's tree).
+// over each page's tree) and of two-level instanced scenes
+// (cluster_trace_inst_tree.cu).
 //
 // A tree is a threaded binary tree over cluster boxes (ops/clusters.py
 // build_cluster_tree, build_octant_trees): node_box (6, N) [xyz min, xyz
@@ -32,6 +33,13 @@
 // ids become g * page_size + cid. Without pages there is no page loop: the
 // lane walks the one tree from node 0 (n_pages and page_size unused), and
 // the leaf id is the cluster id.
+//
+// Two levels (cluster_trace_inst_tree.cu): warp_walk takes a level policy
+// whose step walks a tree over placement boxes in world space and, at a
+// placement it pierces, the prototype's tree from the placement's root in
+// its object space, both by walk_step; its leaves are evaluated with the
+// lane's object-space ray. The default policy, OneLevel, is the walk
+// above, and its hooks compile to nothing.
 //
 // Every lane of the warp must call the walker, dead and out-of-range lanes
 // with live = false: its warp intrinsics name all 32 lanes.
@@ -101,9 +109,25 @@ __device__ __forceinline__ void walk_step(
   if (hit && cid >= 0) held = kPaged ? g * page_size + cid : cid;
 }
 
+// The level policy of a one-level walk, warp_walk's default: the lane's
+// steps are walk_step's, its leaves are evaluated with its own ray, and a
+// win records nothing. A two-level policy sets kTwoLevel, steps with
+// step(node_box, node_meta, links, page_nodes, r, oct, best, walking,
+// held) and gives the ray its leaves are evaluated with (ray) and what a
+// win records (won).
+struct OneLevel {
+  static constexpr bool kTwoLevel = false;
+  static __device__ __forceinline__ const Ray& ray(const OneLevel*,
+                                                   const Ray& r) {
+    return r;
+  }
+  static __device__ __forceinline__ void won(OneLevel*) {}
+};
+
 // The warp walks its lanes' rays through the tree or pages (see the note
-// above). Closest hit: updates best and best_slot. kAnyHit: best is the
-// fixed cap and `occluded` is set at the first hit.
+// above), or through two levels under a two-level policy `level`. Closest
+// hit: updates best and best_slot. kAnyHit: best is the fixed cap and
+// `occluded` is set at the first hit.
 //
 // The warp steps together: the stepping loop ends on a warp vote, once
 // every lane holds a leaf or has finished. A loop that each lane left on
@@ -111,12 +135,12 @@ __device__ __forceinline__ void walk_step(
 // 12.8, -O3) fold it into the outer loop for the any hit of a flat tree,
 // so that the ballot below ran with only the lanes that had just found a
 // leaf and the others' occluders were missed.
-template <bool kPaged, bool kAnyHit>
+template <bool kPaged, bool kAnyHit, class Level = OneLevel>
 __device__ __forceinline__ void warp_walk(
     const float* __restrict__ woop, const float* __restrict__ node_box,
     const int* __restrict__ node_meta, const int* __restrict__ links,
     int n_pages, int page_size, int page_nodes, bool live, const Ray& r,
-    float& best, int& best_slot, bool& occluded) {
+    float& best, int& best_slot, bool& occluded, Level* level = nullptr) {
   const int lane = threadIdx.x % kWarp;
   const int oct = octant(r);
   bool walking = live;
@@ -128,9 +152,14 @@ __device__ __forceinline__ void warp_walk(
     int held = -1;              // global id of the leaf this lane holds
     while (__any_sync(kFull, walking && held < 0)) {
       if (walking && held < 0) {
-        walk_step<kPaged>(node_box, node_meta, links, n_pages, page_size,
-                          page_nodes, r, oct, best, g, n, last_e, last_g,
-                          walking, held);
+        if constexpr (Level::kTwoLevel) {
+          level->step(node_box, node_meta, links, page_nodes, r, oct, best,
+                      walking, held);
+        } else {
+          walk_step<kPaged>(node_box, node_meta, links, n_pages, page_size,
+                            page_nodes, r, oct, best, g, n, last_e, last_g,
+                            walking, held);
+        }
       }
     }
     const unsigned holders = __ballot_sync(kFull, held >= 0);
@@ -144,13 +173,15 @@ __device__ __forceinline__ void warp_walk(
       WarpCluster wc;
       load_warp_cluster(wc, woop + static_cast<size_t>(c) * 4 * kWoopCols,
                         lane);
+      const Ray& q = Level::ray(level, r);
       if (kAnyHit) {
-        if (warp_any_group(wc, group, r, best, lane)) {
+        if (warp_any_group(wc, group, q, best, lane)) {
           occluded = true;
           walking = false;
         }
-      } else {
-        warp_closest_group(wc, group, r, c, lane, best, best_slot);
+      } else if (warp_closest_group(wc, group, q, c, lane, best,
+                                    best_slot)) {
+        Level::won(level);
       }
       todo &= ~group;
     }

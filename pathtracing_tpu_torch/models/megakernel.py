@@ -26,7 +26,7 @@ import torch
 
 from pathtracing_tpu_torch.models import scene as scene_mod
 from pathtracing_tpu_torch.models import shading
-from pathtracing_tpu_torch.ops import binning, rng
+from pathtracing_tpu_torch.ops import binning, cluster_trace, rng
 from pathtracing_tpu_torch.utils import metrics
 from pathtracing_tpu_torch.utils.config import RenderConfig
 
@@ -72,7 +72,9 @@ def render_samples(scene, camera, config: RenderConfig, sample_start,
     i * sample_stride`` (a stride lets several renders split the samples
     of one image). ``stats`` (optional dict) accumulates ``segments``
     (rays entering each bounce's closest-hit query) and
-    ``shadow_segments`` (NEE shadow rays) as device tensors.
+    ``shadow_segments`` (NEE shadow rays) as device tensors, and in a
+    scene of the two-level instanced walk its ``placements_entered`` and
+    ``proto_clusters_tested`` (``cluster_trace.WALK_COUNTS``).
 
     Scattered-rows mode: ``rows`` ((R,) integer tensor) names image rows
     and ``rows_sample_start`` ((R,)) gives each row its own sample
@@ -211,6 +213,9 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
     if has_mips:
         state += (torch.zeros(n, dtype=torch.float32, device=dev),)
     per_path = [keys, ld_nee, ld_scatter, times]
+    # The two-level walk counts only where stats are asked for.
+    counts = (cluster_trace.walk_counts(dev)
+              if stats is not None and scene.inst_tree is not None else None)
 
     def bounces(state, per_path, start, stop):
         ks, ldn, lds, tm = per_path
@@ -228,6 +233,7 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
                     cone=(state[7 + has_media + has_sss] if has_mips
                           else None),
                     cone_spread=spread, bin_rays=config.ray_sort,
+                    counts=counts,
                 )
             if stats is not None:
                 stats["segments"] = stats.get("segments", 0) + state[4].sum()
@@ -258,6 +264,9 @@ def _trace_pixels(scene, camera, config: RenderConfig, traversal: str,
             per_path = [None if a is None else a[keep] for a in per_path]
         start = d
     radiance = bounces(state, per_path, start, config.max_depth)[0]
+    if counts is not None:
+        for name, n in zip(cluster_trace.WALK_COUNTS, counts):
+            stats[name] = stats.get(name, 0) + n
     for inv, full_radiance, dead in reversed(undo):
         # Dead lanes keep the radiance they had at the compaction.
         radiance = torch.cat([radiance, full_radiance[dead]])[inv]

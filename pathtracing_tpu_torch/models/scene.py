@@ -20,7 +20,8 @@ the triangles to ``ops.cluster_trace``: the CUDA kernels for
 with ``instances`` goes to the instanced pair, a paged scene (``pages``)
 to the paged pair (closest hit and any hit), a flat scene of at most
 ``DNF_MAX_CLUSTERS`` clusters to the flat pair, and a larger unpaged one
-to the cluster-tree walk. ``traversal="bvh"`` walks the threaded BVH
+to the cluster-tree walk; and, the port's own, a scene with ``inst_tree``
+(static placements past that budget) to the two-level instanced walk. ``traversal="bvh"`` walks the threaded BVH
 instead (``ops.bvh.traverse``, plain torch), as the JAX package's CPU
 default does; it refuses instanced scenes. With ``bin_rays`` both cluster
 routes sort a query's rays into (coarse cell, direction octant) bins
@@ -77,6 +78,13 @@ class Scene(NamedTuple):
     # entries). When set, every cluster query goes through the instanced
     # kernels. None for ordinary scenes.
     instances: cluster_ops.InstanceSet = None
+    # Two-level instancing (ops.clusters.InstanceTree) of a scene whose
+    # expanded placements would pass ``DNF_MAX_CLUSTERS``: a tree over the
+    # placements (the base geometry as an identity placement) above the
+    # prototypes' trees over the clusters stored in ``clusters``. When set,
+    # every cluster query takes the two-level walks; never together with
+    # ``instances``.
+    inst_tree: cluster_ops.InstanceTree = None
     # HBM pages (ops.clusters.PageSet) of a scene past the flat kernels'
     # budget; ``clusters`` is then in page order, padded to whole pages.
     pages: cluster_ops.PageSet = None
@@ -581,14 +589,15 @@ class SceneBuilder:
         """Instance one prototype mesh many times by object→world affine
         transforms — shared geometry (``ops.clusters.InstanceSet``): the
         mesh's Woop and material tensors are stored ONCE; each transform
-        adds only ~72 bytes per prototype cluster of expanded traversal
-        metadata.
+        adds ~72 bytes per prototype cluster of expanded traversal
+        metadata, or past the flat budget one record of its own.
 
         ``transforms``: sequence of (3, 4) or (4, 4) affine matrices (any
         invertible affine; normals transform exactly by the inverse
         transpose). Enforced at ``build()``: instanced materials cannot be
-        emissive (the light table indexes world-space triangles) and the
-        expanded cluster count must fit the flat kernels' budget.
+        emissive (the light table indexes world-space triangles), and
+        moving instances must fit the flat kernels' budget once expanded
+        (static ones past it take the two-level walk).
 
         ``materials`` (optional): one material id (or None) PER TRANSFORM,
         overriding ``mat_id`` for that instance. Overrides cannot be
@@ -743,10 +752,10 @@ class SceneBuilder:
             ).astype(np.int32)
 
         mat_type = np.array([m[0] for m in self._mat], np.int32)
-        instances = None
+        instances = inst_tree = None
         if self._protos:
             n_base = cl.aabb_min.shape[0]
-            cl, instances = self._expand_protos(cl, mat_type)
+            cl, instances, inst_tree = self._place_protos(cl, mat_type)
             if has_attrs:
                 # Prototype slots carry no attribute rows: instanced hits
                 # resolve prim -1 and keep the geometric normal.
@@ -833,6 +842,8 @@ class SceneBuilder:
 
         if instances is not None:
             instances = dev_all(instances)
+        if inst_tree is not None:
+            inst_tree = dev_all(inst_tree)
 
         return Scene(
             env=env, delta=lights.build_delta_lights(self._delta, device),
@@ -843,7 +854,7 @@ class SceneBuilder:
             mat_absorb=mat_absorb, mat_param2=mat_param2, mat_disp=mat_disp,
             mat_aniso=mat_aniso,
             mat_metallic=mat_metallic, mat_clearcoat=mat_clearcoat,
-            instances=instances,
+            instances=instances, inst_tree=inst_tree,
             pages=None if pages is None else dev_all(pages),
             sph_center=dev(sph_center), sph_radius=dev(sph_radius),
             sph_mat=dev(sph_mat, torch.int32),
@@ -867,18 +878,23 @@ class SceneBuilder:
             attr_pack=dev(attr_pack), textures=textures, **tex_fields,
         )
 
-    def _expand_protos(self, cl, mat_type):
+    def _place_protos(self, cl, mat_type):
         """Append each prototype's clusters (built in OBJECT space, packed
         per prototype so cluster ranges stay contiguous) after the base
-        clusters, then expand the placements — base geometry as one
-        identity entry, every instance as a (first, count, M, imat, M1)
-        range — into the InstanceSet. The combined ClusterSet keeps the
-        base geometry's tree fields (instanced scenes never walk a tree).
-        Returns (combined ClusterSet, InstanceSet), numpy."""
+        clusters, then place them. Placements, the base geometry as one
+        identity placement first: expanded into an InstanceSet (one row
+        per placement and prototype cluster) while that fits
+        ``DNF_MAX_CLUSTERS``; past it, when no placement moves, kept in two
+        levels (``cluster_ops.build_instance_tree``: one record per
+        placement over each prototype's own cluster tree), and a moving
+        set past it raises. The combined ClusterSet keeps the base
+        geometry's tree fields. Returns (combined ClusterSet, InstanceSet
+        or None, InstanceTree or None), numpy."""
         n_base = cl.aabb_min.shape[0]
-        placements = [(0, n_base, np.concatenate(
-            [np.eye(3), np.zeros((3, 1))], axis=1))]
+        eye = np.concatenate([np.eye(3), np.zeros((3, 1))], axis=1)
+        placements = [(0, n_base, eye)]
         parts = [cl]
+        trees = [(0, cl)]
         offset = n_base
         for pv0, pe1, pe2, pmats, ts, imats, mts in self._protos:
             if (mat_type[pmats] == materials.TYPE_EMISSIVE).any():
@@ -896,21 +912,28 @@ class SceneBuilder:
             pcl, _, _ = cluster_ops.build_clusters(pv0, pe1, pe2, pmats)
             npc = pcl.aabb_min.shape[0]
             parts.append(pcl)
+            trees.append((offset, pcl))
             for m, im, m1 in zip(ts, imats, mts):
                 placements.append((offset, npc, m, im, m1))
             offset += npc
         cl = cl._replace(**{
             f: np.concatenate([getattr(p, f) for p in parts])
             for f in ("aabb_min", "aabb_max", "woop", "normal", "mat")})
-        instances = cluster_ops.expand_instances(cl, placements)
-        ce = instances.cmap.shape[0]
-        if ce > cluster_trace.DNF_MAX_CLUSTERS:
+        ce = sum(p[1] for p in placements)
+        if ce <= cluster_trace.DNF_MAX_CLUSTERS:
+            return cl, cluster_ops.expand_instances(cl, placements), None
+        if any(len(p) > 4 and p[4] is not None for p in placements):
             raise ValueError(
                 f"{ce} expanded instance clusters exceed the DNF budget "
-                f"({cluster_trace.DNF_MAX_CLUSTERS}); reduce instance "
-                "counts or split the scene"
+                f"({cluster_trace.DNF_MAX_CLUSTERS}) and some placements "
+                "move (only static placements take the two-level walk); "
+                "reduce instance counts or split the scene"
             )
-        return cl, instances
+        proto_of = {first: k for k, (first, _) in enumerate(trees)}
+        itree = cluster_ops.build_instance_tree(
+            trees, [(proto_of[p[0]], p[2], p[3] if len(p) > 3 else -1)
+                    for p in placements])
+        return cl, None, itree
 
 
 def has_motion(scene: Scene) -> bool:
@@ -929,8 +952,9 @@ def uses_mips(scene: Scene) -> bool:
 
 def uses_dnf(scene: Scene) -> bool:
     """True when cluster queries route to a cluster sweep (flat, instanced
-    or paged): the megakernel then compacts its waves, and shading does
-    not bin their rays, as in the JAX package. False only for an unpaged
+    or paged) or to the two-level instanced walk: the megakernel then
+    compacts its waves, and shading does not bin their rays, as in the JAX
+    package for the sweeps. False only for an unpaged
     scene past ``DNF_MAX_CLUSTERS``, which walks the cluster tree; with
     ``RenderConfig.ray_sort`` that route's queries take their rays in
     (cell, octant) bins (``binning.ray_bin``). A query's result does not
@@ -938,6 +962,7 @@ def uses_dnf(scene: Scene) -> bool:
     return scene.clusters is not None and (
         scene.pages is not None
         or scene.instances is not None
+        or scene.inst_tree is not None
         or scene.clusters.woop.shape[0] <= cluster_trace.DNF_MAX_CLUSTERS
     )
 
@@ -975,15 +1000,23 @@ _ROUTES = {
                         cluster_trace.trace_tree),
     ("occluded", "tree"): (cluster_trace.occluded_tree_torch,
                            cluster_trace.occluded_tree),
+    # No JAX counterpart: the JAX package expands every placement.
+    ("trace", "inst_tree"): (cluster_trace.trace_inst_tree_torch,
+                             cluster_trace.trace_inst_tree),
+    ("occluded", "inst_tree"): (cluster_trace.occluded_inst_tree_torch,
+                                cluster_trace.occluded_inst_tree),
 }
 
 
 def cluster_route(scene: Scene) -> str:
-    """Which traversal a scene's cluster queries take, as in the JAX
-    package: "instanced", "paged", "flat" (at most ``DNF_MAX_CLUSTERS``
-    clusters) or "tree" (an unpaged scene past that budget)."""
+    """Which traversal a scene's cluster queries take: as in the JAX
+    package "instanced", "paged", "flat" (at most ``DNF_MAX_CLUSTERS``
+    clusters) or "tree" (an unpaged scene past that budget); the port's
+    own "inst_tree" (two-level instancing past that budget)."""
     if scene.instances is not None:
         return "instanced"
+    if scene.inst_tree is not None:
+        return "inst_tree"
     if scene.pages is not None:
         return "paged"
     if scene.clusters.woop.shape[0] <= cluster_trace.DNF_MAX_CLUSTERS:
@@ -991,11 +1024,13 @@ def cluster_route(scene: Scene) -> str:
     return "tree"
 
 
-def _cluster_query(scene: Scene, query: str, traversal: str):
+def _cluster_query(scene: Scene, query: str, traversal: str, counts=None):
     """The cluster traversal of this scene under ``traversal``, as a
     function (origin, direction, cap, time) -> result. Instanced scenes
     take the instanced pair (``time`` is the per-ray shutter time of a
-    motion set); the other routes ignore ``time``."""
+    motion set); the other routes ignore ``time``. ``counts``
+    (``cluster_trace.walk_counts``, or None) gets the two-level walk's
+    counts; the other routes count nothing."""
     route = cluster_route(scene)
     if traversal not in ("cluster_torch", "cluster_cuda"):
         raise ValueError(f"unknown traversal mode: {traversal!r}")
@@ -1006,6 +1041,9 @@ def _cluster_query(scene: Scene, query: str, traversal: str):
     if route == "paged":
         return lambda o, d, cap, time: fn(scene.clusters, scene.pages,
                                           o, d, cap)
+    if route == "inst_tree":
+        return lambda o, d, cap, time: fn(scene.clusters, scene.inst_tree,
+                                          o, d, cap, counts=counts)
     return lambda o, d, cap, time: fn(scene.clusters, o, d, cap)
 
 
@@ -1154,7 +1192,7 @@ def intersect_scene(scene: Scene, origin, direction) -> Hit:
     "bvh" route, the JAX package's vmapped ``intersect_scene``): spheres
     by brute force, triangles by ``ops.bvh.traverse`` culled against the
     best sphere t. The Hit carries ``prim`` and no slot."""
-    if scene.instances is not None:
+    if scene.instances is not None or scene.inst_tree is not None:
         raise ValueError(
             "instanced scenes need a cluster traversal mode (the BVH only "
             "indexes base triangles)"
@@ -1190,10 +1228,11 @@ def intersect_scene(scene: Scene, origin, direction) -> Hit:
 
 def _binned(scene: Scene, query, origin, direction, cap, time):
     """``query`` on the rays sorted into (coarse cell, direction octant)
-    bins over the scene's box (the instances' boxes, else the clusters'),
-    lanes with a zero cap in the last bin; the results come back in the
-    rays' own order."""
-    src = scene.instances if scene.instances is not None else scene.clusters
+    bins over the scene's box (the instances' or placements' boxes, else
+    the clusters'), lanes with a zero cap in the last bin; the results
+    come back in the rays' own order."""
+    src = next(x for x in (scene.instances, scene.inst_tree, scene.clusters)
+               if x is not None)
     lo = torch.amin(src.aabb_min, dim=0)
     hi = torch.amax(src.aabb_max, dim=0)
     bins = binning.ray_bin(origin, direction, lo, hi, cap > 0.0)
@@ -1208,20 +1247,21 @@ def _binned(scene: Scene, query, origin, direction, cap, time):
 @metrics.traced("trace.occluded")
 def occluded_batch(scene: Scene, origin, direction, t_max,
                    traversal: str, active=None, time=None,
-                   bin_rays: bool = False):
+                   bin_rays: bool = False, counts=None):
     """Any-hit occlusion for a (R, 3) ray batch: True where any primitive
     lies strictly inside (T_MIN, t_max). Lanes the sphere pass already
     occluded, and inactive lanes, get a zero cap so the cluster sweep
     skips them (the result ORs the sphere answer back in). ``time``
     (optional (R,)): per-ray shutter time for motion-blurred instances.
     ``bin_rays``: the cluster query takes its rays in bins
-    (``_binned``). The "bvh" route answers with its closest hit,
-    ``t < t_max``, as the JAX package does, and does not bin."""
+    (``_binned``). ``counts``: as ``_cluster_query``'s. The "bvh" route
+    answers with its closest hit, ``t < t_max``, as the JAX package does,
+    and does not bin."""
     if traversal == "bvh":
         hit = intersect_scene(scene, origin, direction)
         occ = hit.valid & (hit.t < t_max)
         return occ & active if active is not None else occ
-    query = _cluster_query(scene, "occluded", traversal)
+    query = _cluster_query(scene, "occluded", traversal, counts)
     ts = _sphere_pass(scene, origin, direction)
     occ_sph = torch.min(ts, dim=1).values < t_max
     if active is not None:
@@ -1238,20 +1278,20 @@ def occluded_batch(scene: Scene, origin, direction, t_max,
 @metrics.traced("trace.closest")
 def intersect_batch(scene: Scene, origin, direction, traversal: str,
                     active=None, t_max=None, time=None,
-                    bin_rays: bool = False) -> Hit:
+                    bin_rays: bool = False, counts=None) -> Hit:
     """Closest hit for a whole (R, 3) ray batch. Spheres first (their best
     t culls the cluster sweep); ``active`` (optional (R,) bool) gives dead
     lanes ``t_init = 0``, and their Hit fields are garbage the callers
     mask. ``time`` (optional (R,)): per-ray shutter time for
     motion-blurred instances. ``bin_rays``: the cluster query takes its
-    rays in bins (``_binned``). The "bvh" route (``intersect_scene``)
-    ignores ``active``, ``t_max``, ``time`` and ``bin_rays``, as the JAX
-    package's does. ``prim`` resolves a cluster hit's slot through
+    rays in bins (``_binned``). ``counts``: as ``_cluster_query``'s. The
+    "bvh" route (``intersect_scene``) ignores ``active``, ``t_max``,
+    ``time``, ``bin_rays`` and ``counts``, as the JAX package's does. ``prim`` resolves a cluster hit's slot through
     ``slot_to_tri`` where the scene has it (-1 elsewhere, with no
     gather)."""
     if traversal == "bvh":
         return intersect_scene(scene, origin, direction)
-    query = _cluster_query(scene, "trace", traversal)
+    query = _cluster_query(scene, "trace", traversal, counts)
     ts = _sphere_pass(scene, origin, direction)               # (R, S)
     sph_t, sph_idx = torch.min(ts, dim=1)
     t_init = torch.where(torch.isfinite(sph_t), sph_t, 3.0e38)

@@ -139,7 +139,7 @@ def bounce_batch(scene, o, d, keys, depth, radiance, throughput, active,
                  ld_nee=None, ld_scatter=None, nee_candidates: int = 1,
                  return_shadow_count: bool = False, time=None, medium=None,
                  sss=None, cone=None, cone_spread=None,
-                 bin_rays: bool = False):
+                 bin_rays: bool = False, counts=None):
     """One bounce for a whole (R,) ray batch. ``depth`` is the bounce index:
     an int (the megakernel: every lane at one depth) or an (R,) integer
     tensor (the wavefront pool: per-slot counters). ``keys`` are the
@@ -155,7 +155,9 @@ def bounce_batch(scene, o, d, keys, depth, radiance, throughput, active,
     ``bin_rays`` (``RenderConfig.ray_sort``): the closest-hit and shadow
     queries of a scene that walks the cluster tree take their rays in
     (cell, octant) bins; the cluster sweeps (``uses_dnf``) never bin, as
-    in the JAX package. The results do not depend on it.
+    in the JAX package. The results do not depend on it. ``counts``
+    (``cluster_trace.walk_counts``, or None) gets the two-level instanced
+    walk's counts of this bounce's queries.
 
     ``medium`` ((R, 3), scenes with ``mat_absorb``; zeros when None) is
     the per-path interior sigma_a: the segment travelled loses
@@ -214,7 +216,8 @@ def bounce_batch(scene, o, d, keys, depth, radiance, throughput, active,
 
     bin_rays = bin_rays and not scene_mod.uses_dnf(scene)
     hit = scene_mod.intersect_batch(scene, o, d, traversal, active=active,
-                                    time=time, bin_rays=bin_rays)
+                                    time=time, bin_rays=bin_rays,
+                                    counts=counts)
 
     has_fog = scene.fog is not None
     has_vol = scene.vol is not None
@@ -486,7 +489,7 @@ def bounce_batch(scene, o, d, keys, depth, radiance, throughput, active,
         t_shadow = dist * (1.0 - 1e-3)
         occluded = scene_mod.occluded_batch(
             scene, o_nee, wi, t_shadow, traversal, active=cand, time=time,
-            bin_rays=bin_rays)
+            bin_rays=bin_rays, counts=counts)
         vis = cand & ~occluded
         n_shadow = n_shadow + cand.sum()
 
@@ -546,7 +549,7 @@ def bounce_batch(scene, o, d, keys, depth, radiance, throughput, active,
                            device=dev)
         occ_e = scene_mod.occluded_batch(
             scene, o_env, wi_e, t_env, traversal, active=cand_e, time=time,
-            bin_rays=bin_rays)
+            bin_rays=bin_rays, counts=counts)
         vis_e = cand_e & ~occ_e
         n_shadow = n_shadow + cand_e.sum()
         f_lobe_e, pdf_b_e = lobe(wi_e, cos_e)
@@ -587,7 +590,7 @@ def bounce_batch(scene, o, d, keys, depth, radiance, throughput, active,
             cand_d = cand_d | (vol_event & (vol_albedo > 0.0))
         occ_d = scene_mod.occluded_batch(
             scene, o_dl, wi_d, t_sh_d, traversal, active=cand_d, time=time,
-            bin_rays=bin_rays)
+            bin_rays=bin_rays, counts=counts)
         vis_d = cand_d & ~occ_d
         n_shadow = n_shadow + cand_d.sum()
         f_lobe_d, _ = lobe(wi_d, cos_d)

@@ -42,6 +42,22 @@ Plain versions ``trace_inst_torch`` / ``occluded_inst_torch`` (a port of
 kernels cull whole placements by ``InstanceSet.inst_min`` / ``inst_max``
 first, exactly, so the index-order sweeps stay their plain versions.
 
+Static placements whose expansion would pass ``DNF_MAX_CLUSTERS`` stay in
+two levels (``ops.clusters.InstanceTree``) and go through
+
+  trace_inst_tree(clusters, itree, origin, direction, t_init)
+  occluded_inst_tree(clusters, itree, origin, direction, t_max)
+
+with the contract of the instanced pair (``slot`` a slot of the combined
+ClusterSet, ``normal`` in world space, ``mat`` with the placement's
+override): each ray walks a tree over the placements' world boxes and, in
+each placement it enters, the prototype's cluster tree in object space.
+Plain versions ``trace_inst_tree_torch`` / ``occluded_inst_tree_torch``
+(the kernels' order); kernels in ``csrc/cluster_trace_inst_tree.cu``, on
+the shared walker. Against ``trace_inst_torch`` over the same placements
+expanded: t bit for bit, slot, normal and material equal or t tied; the
+any hit equal.
+
 Scenes past ``DNF_MAX_CLUSTERS`` (``ops.clusters`` trees and pages) go
 through
 
@@ -92,7 +108,14 @@ DNF_MAX_CLUSTERS = 8192
 LAUNCHES = {"trace": 0, "occluded": 0, "trace_inst": 0,
             "occluded_inst": 0, "trace_paged_dnf": 0,
             "occluded_paged_dnf": 0, "trace_tree": 0, "occluded_tree": 0,
-            "trace_tree_paged": 0}
+            "trace_tree_paged": 0, "trace_inst_tree": 0,
+            "occluded_inst_tree": 0}
+
+
+# What the two-level walks count where a caller gives them ``counts``
+# (the engine's traced frames): placement leaves a ray pierced and walked,
+# and prototype leaves it evaluated, in this order.
+WALK_COUNTS = ("placements_entered", "proto_clusters_tested")
 
 
 def reset_launches() -> None:
@@ -686,12 +709,23 @@ def trace_inst_torch(clusters, inst, origin, direction, t_init, time=None,
     if stats is not None:
         stats["slab_tests"] = n_slab
         stats["cluster_evals"] = n_eval
-    n_obj, mat = lookup_hit(clusters, best_slot)
     if tt is None:
         xf = inst.xform[best_e].unbind(1)
     else:
         xf = _lerp_affine_inverse(inst.fw0[best_e].unbind(1),
                                   inst.fw1[best_e].unbind(1), tt)
+    return _world_hit(clusters, xf,
+                      None if inst.imat is None else inst.imat[best_e],
+                      best_t, best_slot)
+
+
+def _world_hit(clusters, xf, imat, best_t, best_slot):
+    """The closest-hit result of an instanced query: the winner's
+    object-space normal taken to world space by its placement's 12
+    world->object entries ``xf`` (columns), the material from the table
+    or the placement's override ``imat`` ((R,), -1 keeps the table's;
+    None: no overrides)."""
+    n_obj, mat = lookup_hit(clusters, best_slot)
     # World normal = Lᵀ·n_obj (rows of Lᵀ are columns of L), renormalised.
     n0, n1, n2 = n_obj[:, 0], n_obj[:, 1], n_obj[:, 2]
     nw = [xf[0] * n0 + xf[3] * n1 + xf[6] * n2,
@@ -703,9 +737,8 @@ def trace_inst_torch(clusters, inst, origin, direction, t_init, time=None,
     miss = best_slot < 0
     normal = torch.where(miss[:, None], 0.0, normal)
     mat = torch.where(miss, 0, mat)
-    if inst.imat is not None:
-        im = inst.imat[best_e]
-        mat = torch.where(~miss & (im >= 0), im, mat)
+    if imat is not None:
+        mat = torch.where(~miss & (imat >= 0), imat, mat)
     return best_t, best_slot, normal, mat
 
 
@@ -741,6 +774,139 @@ def occluded_inst_torch(clusters, inst, origin, direction, t_max, time=None,
     if stats is not None:
         stats["slab_tests"] = n_slab
         stats["cluster_evals"] = n_eval
+    return occ
+
+
+# --- two-level instanced plain torch versions ---------------------------
+
+
+def _walk_inst_torch(clusters, itree, origin, direction, best_t, best_slot,
+                     best_p, stats, occ=None, counts=None):
+    """Per-ray two-level walk of an ``InstanceTree``, all walking rays
+    stepping together. A ray at the top level slab-tests its next node of
+    the tree over the placement boxes in world space and moves along its
+    own octant's links; at a placement leaf it pierces it enters the
+    placement: its ray goes into the placement's object space
+    (``_ray_to_object``) and walks the prototype's tree from the
+    placement's root as ``_walk_torch`` walks a flat tree (that ray's own
+    octant, leaves evaluated against their clusters), then comes back to
+    the top level. t stays the world t. Closest hit: in place on
+    ``best_t`` / ``best_slot`` / ``best_p`` (the winning placement).
+    Any hit (``occ`` given): ``best_t`` is the fixed cap and a ray is
+    retired at its first hit. ``stats`` (a dict or None) receives
+    ``slab_tests``, ``cluster_evals``, ``placements_entered`` and
+    ``proto_clusters_tested``. ``counts`` (``WALK_COUNTS``, or None) has
+    the last two added to it, as the kernels' counting launches add
+    them."""
+    dev = origin.device
+    r = origin.shape[0]
+    n_top = itree.node_box.shape[1]
+    n_forest = itree.forest_box.shape[1]
+    live = best_t > 0.0
+    if occ is not None:
+        live = live & ~occ
+    top = torch.where(live, 0, n_top).long()        # next top node
+    place = torch.full((r,), -1, dtype=torch.int64, device=dev)
+    node = torch.zeros(r, dtype=torch.int64, device=dev)   # forest node
+    q_o = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    q_d = torch.zeros_like(q_o)
+    inv_d, octant = _safe_inv(direction), _octant(direction)
+    q_inv, q_oct = torch.zeros_like(q_o), torch.zeros_like(octant)
+    top_links = itree.oct_links.reshape(16, n_top)
+    forest_links = itree.forest_links.reshape(16, n_forest)
+    n_slab = n_eval = n_enter = 0
+    while True:
+        # Rays in a placement whose walk has ended go back to the top.
+        place = torch.where((place >= 0) & (node >= n_forest), -1, place)
+        up = torch.nonzero((place < 0) & (top < n_top)).squeeze(1)
+        down = torch.nonzero(place >= 0).squeeze(1)
+        if up.numel() + down.numel() == 0:
+            break
+        n_slab += up.numel() + down.numel()
+        if up.numel():
+            nd = top[up]
+            box = itree.node_box[:, nd]
+            hit = _slab(origin[up], inv_d[up], box[:3], box[3:], best_t[up])
+            pid = itree.node_meta[1, nd].long()
+            oc = octant[up]
+            top[up] = torch.where(hit, top_links[oc, nd],
+                                  top_links[8 + oc, nd]).long()
+            enter = hit & (pid >= 0)
+            ei, ep = up[enter], pid[enter]
+            if ei.numel():
+                n_enter += ei.numel()
+                o_e, d_e = _ray_to_object(itree.xform[ep].unbind(1),
+                                          origin[ei], direction[ei])
+                q_o[ei], q_d[ei] = o_e, d_e
+                q_inv[ei], q_oct[ei] = _safe_inv(d_e), _octant(d_e)
+                place[ei] = ep
+                node[ei] = itree.root[ep].long()
+        if down.numel():
+            nd = node[down]
+            box = itree.forest_box[:, nd]
+            bt = best_t[down]
+            hit = _slab(q_o[down], q_inv[down], box[:3], box[3:], bt)
+            cid = itree.forest_meta[1, nd].long()
+            oc = q_oct[down]
+            nxt = torch.where(hit, forest_links[oc, nd],
+                              forest_links[8 + oc, nd]).long()
+            leaf = hit & (cid >= 0)
+            li = down[leaf]
+            if li.numel():
+                n_eval += li.numel()
+                c = cid[leaf]
+                t_pair = _pair_eval(q_o[li], q_d[li], clusters.woop[c],
+                                    bt[leaf][:, None])
+                if occ is None:
+                    _closest_update(t_pair, c, bt[leaf], best_t, best_slot,
+                                    li)
+                    won = best_t[li] < bt[leaf]
+                    best_p[li] = torch.where(won, place[li], best_p[li])
+                else:
+                    found = torch.min(t_pair, dim=1).values < bt[leaf]
+                    occ[li] = found
+                    nxt[leaf] = torch.where(found, n_forest, nxt[leaf])
+                    top[li[found]] = n_top
+            node[down] = nxt
+    if stats is not None:
+        stats.update(slab_tests=n_slab, cluster_evals=n_eval,
+                     placements_entered=n_enter, proto_clusters_tested=n_eval)
+    if counts is not None:
+        counts += torch.tensor([n_enter, n_eval], dtype=torch.int64,
+                               device=counts.device)
+
+
+def trace_inst_tree_torch(clusters, itree, origin, direction, t_init,
+                          stats=None, counts=None):
+    """Plain two-level instanced closest hit (``_walk_inst_torch``), the
+    kernel's order: strict ``<`` across clusters and the smallest lane on
+    a tie within one; the winning placement's transform takes the table's
+    object-space normal to world space (Lᵀn, renormalised) and its
+    override replaces the material. Against ``trace_inst_torch`` over the
+    expanded placements (index order): t bit for bit; slot, normal and
+    material equal or t tied. ``stats`` and ``counts`` as in
+    ``_walk_inst_torch``."""
+    best_t, best_slot = _start(origin, t_init)
+    best_p = torch.zeros(origin.shape[0], dtype=torch.int64,
+                         device=origin.device)
+    _walk_inst_torch(clusters, itree, origin, direction, best_t, best_slot,
+                     best_p, stats, counts=counts)
+    return _world_hit(clusters, itree.xform[best_p].unbind(1),
+                      None if itree.imat is None else itree.imat[best_p],
+                      best_t, best_slot)
+
+
+def occluded_inst_tree_torch(clusters, itree, origin, direction, t_max,
+                             stats=None, counts=None):
+    """Plain two-level instanced any hit: ``_walk_inst_torch`` with the cap
+    fixed, each ray retired at its first occluder; equal to
+    ``occluded_inst_torch`` over the expanded placements (occlusion does
+    not depend on the order of visits). ``stats`` and ``counts`` as
+    there."""
+    cap = t_max.to(torch.float32)
+    occ = torch.zeros(origin.shape[0], dtype=torch.bool, device=origin.device)
+    _walk_inst_torch(clusters, itree, origin, direction, cap, None, None,
+                     stats, occ=occ, counts=counts)
     return occ
 
 
@@ -791,6 +957,19 @@ _TREE_SIGNATURES = {
     # n_rays, n_pages, page_nodes, page_size, t_out, slot_out, normal_out,
     # mat_out, stream
     "ptpu_trace_tree_paged": [_P] * 8 + [_I] * 4 + [_P] * 5,
+}
+
+
+_INST_TREE_SIGNATURES = {
+    # origin, direction, t_init, node_box, node_meta, oct_links, xform,
+    # root, imat, forest_box, forest_meta, forest_links, woop, normal, mat,
+    # n_rays, n_nodes, n_forest, t_out, slot_out, normal_out, mat_out,
+    # counts, stream
+    "ptpu_trace_inst_tree": [_P] * 15 + [_I] * 3 + [_P] * 6,
+    # origin, direction, t_max, node_box, node_meta, oct_links, xform,
+    # root, forest_box, forest_meta, forest_links, woop, n_rays, n_nodes,
+    # n_forest, occ_out, counts, stream
+    "ptpu_occluded_inst_tree": [_P] * 12 + [_I] * 3 + [_P] * 3,
 }
 
 
@@ -1185,3 +1364,109 @@ def trace_tree_paged(clusters, pages, origin, direction, t_init):
     _raise_on(err, "trace_tree_paged_kernel")
     LAUNCHES["trace_tree_paged"] += 1
     return out
+
+
+# --- two-level instanced kernels ----------------------------------------
+
+
+def _inst_tree_library():
+    return cuda_build.load("cluster_trace_inst_tree", _INST_TREE_SIGNATURES)
+
+
+def _inst_tree_args(itree, device):
+    """Checked (n_nodes, n_forest, (node_box, node_meta, oct_links, xform,
+    root), (forest_box, forest_meta, forest_links)) of an InstanceTree."""
+    p = itree.xform.shape[0]
+    n = itree.node_box.shape[1]
+    f = itree.forest_box.shape[1]
+    top = (
+        _checked(itree.node_box, torch.float32, (6, n), "itree.node_box"),
+        _checked(itree.node_meta, torch.int32, (2, n), "itree.node_meta"),
+        _checked(itree.oct_links, torch.int32, (2, 8, n), "itree.oct_links"),
+        _checked(itree.xform, torch.float32, (p, 12), "itree.xform"),
+        _checked(itree.root, torch.int32, (p,), "itree.root"),
+    )
+    forest = (
+        _checked(itree.forest_box, torch.float32, (6, f), "itree.forest_box"),
+        _checked(itree.forest_meta, torch.int32, (2, f),
+                 "itree.forest_meta"),
+        _checked(itree.forest_links, torch.int32, (2, 8, f),
+                 "itree.forest_links"),
+    )
+    _same_device(top + forest, device)
+    return n, f, top, forest
+
+
+def walk_counts(device):
+    """A zeroed counter of ``WALK_COUNTS`` for the two-level walks'
+    ``counts``: (2,) int64 on ``device``."""
+    return torch.zeros(len(WALK_COUNTS), dtype=torch.int64, device=device)
+
+
+def _counts_arg(counts, device):
+    if counts is None:
+        return None
+    _checked(counts, torch.int64, (len(WALK_COUNTS),), "counts")
+    _same_device((counts,), device)
+    return counts
+
+
+def trace_inst_tree(clusters, itree, origin, direction, t_init,
+                    counts=None):
+    """Closest hit of a two-level instanced scene (see the module
+    contract; ``slot`` is a slot of the combined ClusterSet, ``normal`` in
+    world space, ``mat`` with the placement's override). CPU tensors take
+    ``trace_inst_tree_torch``; CUDA tensors launch
+    ``trace_inst_tree_kernel``, its counting instantiation where
+    ``counts`` (``WALK_COUNTS``) is given."""
+    dev = origin.device
+    if dev.type == "cpu":
+        return trace_inst_tree_torch(clusters, itree, origin, direction,
+                                     t_init, counts=counts)
+    r, rays = _ray_args(origin, direction, t_init, "t_init")
+    n, f, top, forest = _inst_tree_args(itree, dev)
+    imat = None
+    if itree.imat is not None:
+        imat = _checked(itree.imat, torch.int32, (itree.xform.shape[0],),
+                        "itree.imat")
+    tables = _hit_tables(clusters, dev)
+    out = _closest_out(r, dev)
+    if r == 0:
+        return out
+    err = _inst_tree_library().ptpu_trace_inst_tree(
+        *(x.data_ptr() for x in rays), *(x.data_ptr() for x in top),
+        _ptr(imat), *(x.data_ptr() for x in forest),
+        *(x.data_ptr() for x in tables), r, n, f,
+        *(x.data_ptr() for x in out), _ptr(_counts_arg(counts, dev)),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "trace_inst_tree_kernel")
+    LAUNCHES["trace_inst_tree"] += 1
+    return out
+
+
+def occluded_inst_tree(clusters, itree, origin, direction, t_max,
+                       counts=None):
+    """Any-hit occlusion of a two-level instanced scene (see the module
+    contract). CPU tensors take ``occluded_inst_tree_torch``; CUDA tensors
+    launch ``occluded_inst_tree_kernel``, its counting instantiation where
+    ``counts`` (``WALK_COUNTS``) is given."""
+    dev = origin.device
+    if dev.type == "cpu":
+        return occluded_inst_tree_torch(clusters, itree, origin, direction,
+                                        t_max, counts=counts)
+    r, rays = _ray_args(origin, direction, t_max, "t_max")
+    n, f, top, forest = _inst_tree_args(itree, dev)
+    woop = _hit_tables(clusters, dev)[0]
+    occ = torch.empty(r, dtype=torch.bool, device=dev)
+    if r == 0:
+        return occ
+    err = _inst_tree_library().ptpu_occluded_inst_tree(
+        *(x.data_ptr() for x in rays), *(x.data_ptr() for x in top),
+        *(x.data_ptr() for x in forest), woop.data_ptr(),
+        r, n, f, occ.data_ptr(), _ptr(_counts_arg(counts, dev)),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "occluded_inst_tree_kernel")
+    LAUNCHES["occluded_inst_tree"] += 1
+    return occ

@@ -10,7 +10,11 @@ column k holds [M_row; b_comp] for triangle k, grouped u | v | w.
 Degenerate padding slots use M = 0, b = (-1, -1, 1): u = -1, never a hit.
 
 ``expand_instances`` lays shared-geometry instances out as expanded
-(instance, prototype cluster) rows over one prototype ``ClusterSet``.
+(instance, prototype cluster) rows over one prototype ``ClusterSet``;
+``build_instance_tree`` keeps them in two levels instead, a tree over the
+placements' world boxes above each prototype's own cluster tree, so that
+its size grows with placements plus prototype clusters, not with their
+product.
 
 Past the flat kernels' budget a scene walks a threaded binary tree over the
 cluster boxes (``build_cluster_tree``) with one set of links per direction
@@ -112,54 +116,67 @@ def build_cluster_tree(aabb_min: np.ndarray, aabb_max: np.ndarray):
     first_lower = np.zeros(max_nodes, np.bool_)
     count = 0
 
+    def area(lo, hi):
+        d = np.maximum(hi - lo, 0.0)
+        return d[0] * d[1] + d[1] * d[2] + d[2] * d[0]
+
     def emit(ids):
         nonlocal count
         my = count
         count += 1
-        box[my, :3] = aabb_min[ids].min(axis=0)
-        box[my, 3:] = aabb_max[ids].max(axis=0)
-        if len(ids) == 1:
+        k = len(ids)
+        if k == 1:
+            box[my, :3] = aabb_min[ids[0]]
+            box[my, 3:] = aabb_max[ids[0]]
             meta[my] = (count, ids[0])
             return my
         meta[my, 1] = -1
-        # SAH sweep over all three axes: minimize A_l·n_l + A_r·n_r using
-        # prefix/suffix box unions of the sorted order.
-        best = (np.inf, None, None, 0)
-        k = len(ids)
-        for ax in range(3):
-            order = np.argsort(centroid[ids, ax], kind="stable")
-            s = ids[order]
+        if k == 2:
+            # Every axis costs the two boxes' areas, so the first axis
+            # wins: the pair in x-centroid order.
+            s = ids[np.argsort(centroid[ids, 0], kind="stable")]
             lo, hi = aabb_min[s], aabb_max[s]
-            pre_lo = np.minimum.accumulate(lo, axis=0)
-            pre_hi = np.maximum.accumulate(hi, axis=0)
-            suf_lo = np.minimum.accumulate(lo[::-1], axis=0)[::-1]
-            suf_hi = np.maximum.accumulate(hi[::-1], axis=0)[::-1]
+            axis, cut = 0, 1
+            l_lo, l_hi, r_lo, r_hi = lo[0], hi[0], lo[1], hi[1]
+            box[my, :3] = np.minimum(l_lo, r_lo)
+            box[my, 3:] = np.maximum(l_hi, r_hi)
+        else:
+            # SAH sweep over all three axes at once: minimize
+            # A_l·n_l + A_r·n_r using prefix/suffix box unions of each
+            # axis's sorted order.
+            order = np.argsort(centroid[ids], axis=0, kind="stable").T
+            ss = ids[order]                                   # (3, k)
+            lo, hi = aabb_min[ss], aabb_max[ss]               # (3, k, 3)
+            pre_lo = np.minimum.accumulate(lo, axis=1)
+            pre_hi = np.maximum.accumulate(hi, axis=1)
+            suf_lo = np.minimum.accumulate(lo[:, ::-1], axis=1)[:, ::-1]
+            suf_hi = np.maximum.accumulate(hi[:, ::-1], axis=1)[:, ::-1]
 
             def sa(lo_, hi_):
                 d = np.maximum(hi_ - lo_, 0.0)
-                return (d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2]
-                        + d[:, 2] * d[:, 0])
+                return (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
+                        + d[..., 2] * d[..., 0])
 
             n_l = np.arange(1, k)
-            cost = (sa(pre_lo[:-1], pre_hi[:-1]) * n_l
-                    + sa(suf_lo[1:], suf_hi[1:]) * (k - n_l))
-            j = int(np.argmin(cost))
-            if cost[j] < best[0]:
-                best = (float(cost[j]), s, j + 1, ax)
-        _, s, cut, axis = best
+            cost = (sa(pre_lo[:, :-1], pre_hi[:, :-1]) * n_l
+                    + sa(suf_lo[:, 1:], suf_hi[:, 1:]) * (k - n_l))
+            js = np.argmin(cost, axis=1)
+            best, axis = np.inf, None
+            for ax in range(3):
+                if cost[ax, js[ax]] < best:
+                    best, axis = cost[ax, js[ax]], ax
+            j = int(js[axis])
+            s, cut = ss[axis], j + 1
+            l_lo, l_hi = pre_lo[axis, j], pre_hi[axis, j]
+            r_lo, r_hi = suf_lo[axis, cut], suf_hi[axis, cut]
+            box[my, :3] = pre_lo[0, -1]
+            box[my, 3:] = pre_hi[0, -1]
         # ``left`` is the lower-centroid side along the winning axis by
         # construction — build_octant_trees relies on that.
         left, right = s[:cut], s[cut:]
-
-        def area(sel):
-            d = np.maximum(
-                aabb_max[sel].max(axis=0) - aabb_min[sel].min(axis=0), 0.0
-            )
-            return d[0] * d[1] + d[1] * d[2] + d[2] * d[0]
-
         # Emit the larger-area child first (the order of the unordered
         # walk; the octant links order children by direction instead).
-        lower_first = area(left) >= area(right)
+        lower_first = area(l_lo, l_hi) >= area(r_lo, r_hi)
         if not lower_first:
             left, right = right, left
         child[my, 0] = emit(left)
@@ -202,27 +219,28 @@ def build_octant_trees(child: np.ndarray, axis: np.ndarray,
     subtrees behind them.
     """
     n = child.shape[0]
-    links = np.empty((2, 8, n), np.int32)
     # Octant bit layout: x>0 → +4, y>0 → +2, z>0 → +1 (a zero component
     # counts as negative).
-    for o in range(8):
-        pos = ((o >> 2) & 1, (o >> 1) & 1, o & 1)
-        # Iterative DFS carrying the continuation.
-        stack = [(0, n)]
-        while stack:
-            m, cont = stack.pop()
-            a, b = int(child[m, 0]), int(child[m, 1])
-            if a < 0:
-                links[0, o, m] = cont
-                links[1, o, m] = cont
-                continue
-            lower, upper = (a, b) if first_lower[m] else (b, a)
-            near, far = (lower, upper) if pos[axis[m]] else (upper, lower)
-            links[0, o, m] = near
-            links[1, o, m] = cont
-            stack.append((near, far))
-            stack.append((far, cont))
-    return links
+    pos = (np.arange(8)[:, None] >> np.array([2, 1, 0])) & 1     # (8, 3)
+    lower = np.where(first_lower, child[:, 0], child[:, 1])
+    upper = np.where(first_lower, child[:, 1], child[:, 0])
+    toward = pos[:, axis.astype(np.int64)].astype(bool)           # (8, N)
+    near = np.where(toward, lower, upper)
+    far = np.where(toward, upper, lower)
+    # Each node's continuation, a level at a time from the root's (N):
+    # the near child continues at the far one, the far child at its
+    # parent's continuation.
+    cont = np.empty((8, n), np.int32)
+    cont[:, 0] = n
+    octs = np.arange(8)[:, None]
+    level = np.array([0])
+    while level.size:
+        level = level[child[level, 0] >= 0]
+        cont[octs, near[:, level]] = far[:, level]
+        cont[octs, far[:, level]] = cont[:, level]
+        level = child[level].ravel()
+    inner = child[:, 0] >= 0
+    return np.stack([np.where(inner, near, cont), cont]).astype(np.int32)
 
 
 def partition_pages(aabb_min: np.ndarray, aabb_max: np.ndarray,
@@ -627,3 +645,117 @@ def expand_instances(proto: ClusterSet, placements) -> InstanceSet:
         fw1=np.concatenate(fw1s) if any_motion else None,
         inst_first=inst_first, inst_min=inst_min, inst_max=inst_max,
     )
+
+
+class InstanceTree(NamedTuple):
+    """Two-level shared-geometry instancing: one record per placement
+    under a threaded tree over the placements' world boxes, above a forest
+    of the prototypes' own object-space cluster trees. Nothing grows with
+    placements × prototype clusters.
+
+    Placement p (the base geometry, as an identity placement, is p = 0):
+
+    xform:    (P, 12) f32 world->object transform [L00..L22 row-major,
+              tr0, tr1, tr2], inverted in float64 as ``expand_instances``
+              inverts it.
+    root:     (P,) i32 root node of its prototype's tree in the forest.
+    imat:     (P,) i32 material override (-1 keeps the prototype's) —
+              None when no placement overrides.
+    aabb_min/aabb_max: (P, 3) f32 world box: the corners of its
+              prototype's root box transformed in float64, widened as
+              ``expand_instances`` widens an expanded box.
+
+    The top tree over those boxes (leaf id = placement):
+
+    node_box (6, N) f32, node_meta (2, N) i32, oct_links (2, 8, N) i32,
+    as ``build_cluster_tree`` / ``build_octant_trees`` give them.
+
+    The forest: every prototype's cluster tree (the base geometry's
+    first) stacked, in its prototype's OBJECT space:
+
+    forest_box (6, F) f32, forest_meta (2, F) i32, forest_links (2, 8, F)
+    i32. Node ids and links are global; every tree's links end at F. Each
+    leaf holds its cluster's id in the combined ClusterSet (the
+    prototype's cluster offset added), so the walk below a placement's
+    root reads its leaves as a flat tree's.
+    """
+
+    xform: np.ndarray
+    root: np.ndarray
+    imat: np.ndarray
+    aabb_min: np.ndarray
+    aabb_max: np.ndarray
+    node_box: np.ndarray
+    node_meta: np.ndarray
+    oct_links: np.ndarray
+    forest_box: np.ndarray
+    forest_meta: np.ndarray
+    forest_links: np.ndarray
+
+
+def _stack_forest(trees):
+    """One forest of ``trees`` = [(first cluster, ClusterSet with its tree
+    over its own clusters)]: (forest_box, forest_meta, forest_links, roots
+    (K,) i32)."""
+    total = sum(cs.node_box.shape[1] for _, cs in trees)
+    boxes, metas, links, roots = [], [], [], []
+    off = 0
+    for first, cs in trees:
+        n = cs.node_box.shape[1]
+
+        def glob(ids):
+            # Local node ids move by the offset; the tree's end, n, ends
+            # the forest.
+            return np.where(ids >= n, total, ids + off).astype(np.int32)
+
+        meta = np.stack([glob(cs.node_meta[0]),
+                         np.where(cs.node_meta[1] >= 0,
+                                  cs.node_meta[1] + first, -1)])
+        boxes.append(cs.node_box)
+        metas.append(meta.astype(np.int32))
+        links.append(glob(cs.oct_links))
+        roots.append(off)
+        off += n
+    return (np.concatenate(boxes, axis=1), np.concatenate(metas, axis=1),
+            np.concatenate(links, axis=2), np.array(roots, np.int32))
+
+
+def build_instance_tree(trees, placements) -> InstanceTree:
+    """The two-level structure of ``placements`` over ``trees``.
+
+    ``trees``: [(first cluster, ClusterSet)] per prototype, in the
+    combined ClusterSet's order, each set carrying its tree over its own
+    clusters (``build_clusters``' tree; the base geometry's first).
+    ``placements``: [(prototype index, M, imat)] with M the (3, 4) or
+    (4, 4) OBJECT->WORLD affine and imat the material override (-1
+    keeps the prototype's); the base geometry is one identity placement
+    of prototype 0."""
+    forest_box, forest_meta, forest_links, roots = _stack_forest(trees)
+    p = len(placements)
+    m = np.stack([np.asarray(pl[1], np.float64)[:3] for pl in placements])
+    a, t = m[:, :, :3], m[:, :, 3]
+    li = np.linalg.inv(a)
+    # The translation placement by placement, in ``expand_instances``'
+    # expression.
+    tr = np.stack([-li[i] @ t[i] for i in range(p)])
+    xform = np.concatenate([li.reshape(p, 9), tr], axis=1).astype(np.float32)
+    root = roots[np.array([pl[0] for pl in placements], np.int64)]
+    imat = np.array([pl[2] for pl in placements], np.int32)
+    # The 8 corners of each prototype's root box as masks over (min, max),
+    # taken to world space.
+    masks = np.array([[(k >> 2) & 1, (k >> 1) & 1, k & 1]
+                      for k in range(8)], bool)
+    box = forest_box[:, root].T.astype(np.float64)              # (P, 6)
+    corners = np.where(masks, box[:, None, 3:], box[:, None, :3])
+    corners = corners @ a.transpose(0, 2, 1) + t[:, None, :]    # (P, 8, 3)
+    wmin, wmax = corners.min(axis=1), corners.max(axis=1)
+    margin = (wmax - wmin) * 1e-6 + 1e-30
+    lo = (wmin - margin).astype(np.float32)
+    hi = (wmax + margin).astype(np.float32)
+    nb, nm, child, axis, flo = build_cluster_tree(lo, hi)
+    return InstanceTree(
+        xform=xform, root=root, imat=imat if (imat >= 0).any() else None,
+        aabb_min=lo, aabb_max=hi, node_box=nb, node_meta=nm,
+        oct_links=build_octant_trees(child, axis, flo),
+        forest_box=forest_box, forest_meta=forest_meta,
+        forest_links=forest_links)

@@ -86,7 +86,9 @@ def _scene_equal(sj, st):
     field; the JAX-only ``cand_box`` is dropped by design)."""
     jf = sj._asdict()
     for f, b in st._asdict().items():
-        a = jf[f]
+        # A port-only field (``inst_tree``) reads None on the JAX side,
+        # so the port's must be None too.
+        a = jf.get(f)
         assert (a is None) == (b is None), f
         if a is None:
             continue

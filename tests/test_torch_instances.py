@@ -607,9 +607,12 @@ def _guard_cases():
                                    motion_transforms=[np.eye(2)])
 
     def over_budget():
+        # Static placements past the budget take the two-level walk
+        # (tests/test_torch_inst_tree.py); moving ones still raise.
         b, white, _ = fresh()
         b.add_instances(verts, faces, white,
-                        [EYE] * (tct.DNF_MAX_CLUSTERS + 1))
+                        [EYE] * (tct.DNF_MAX_CLUSTERS + 1),
+                        motion_transforms=[EYE] * (tct.DNF_MAX_CLUSTERS + 1))
         b.build("cpu")
 
     return {

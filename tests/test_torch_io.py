@@ -81,7 +81,9 @@ def _same_scene(pair, label, cams=None):
     sj, st = pair
     jf = sj._asdict()
     for f, b in st._asdict().items():
-        a = jf[f]
+        # A port-only field (``inst_tree``) reads None on the JAX side,
+        # so the port's must be None too.
+        a = jf.get(f)
         assert (a is None) == (b is None), (label, f)
         if a is None:
             continue

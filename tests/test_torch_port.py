@@ -96,9 +96,11 @@ def test_cuda_sources_are_not_built_on_import():
     assert set(cuda_build._LOADED) <= {"bvh_builder"}
     assert sorted(os.listdir(cuda_build.CSRC)) == [
         "bvh_builder.cpp", "cluster_common.cuh", "cluster_trace.cu",
-        "cluster_trace_inst.cu", "cluster_trace_paged.cu",
-        "cluster_trace_tree.cu", "cluster_walk.cuh", "pgather.cu", "rng.cu"]
+        "cluster_trace_inst.cu", "cluster_trace_inst_tree.cu",
+        "cluster_trace_paged.cu", "cluster_trace_tree.cu",
+        "cluster_walk.cuh", "pgather.cu", "rng.cu"]
     assert cuda_build.sources() == ["cluster_trace", "cluster_trace_inst",
+                                    "cluster_trace_inst_tree",
                                     "cluster_trace_paged",
                                     "cluster_trace_tree", "pgather", "rng"]
     with open(os.path.join(ROOT, ".gitignore")) as f:
@@ -162,7 +164,8 @@ def _reaching(funcs, target="warp_walk"):
 WALKER_KERNELS = {"trace_dnf_kernel", "occluded_dnf_kernel",
                   "trace_paged_dnf_kernel", "occluded_paged_dnf_kernel",
                   "trace_tree_kernel", "occluded_tree_kernel",
-                  "trace_tree_paged_kernel"}
+                  "trace_tree_paged_kernel", "trace_inst_tree_kernel",
+                  "occluded_inst_tree_kernel"}
 
 
 def test_one_lane_cluster_walk_is_gone():
@@ -317,7 +320,8 @@ def test_kernel_wrappers_refuse_other_devices():
     assert set(before) == {"trace", "occluded", "trace_inst",
                            "occluded_inst", "trace_paged_dnf",
                            "occluded_paged_dnf", "trace_tree",
-                           "occluded_tree", "trace_tree_paged"}
+                           "occluded_tree", "trace_tree_paged",
+                           "trace_inst_tree", "occluded_inst_tree"}
 
 
 def test_unported_traversal_modes_raise():
