@@ -955,10 +955,14 @@ def volume_targets():
 def profiler_ranges(targets):
     """Profiler ranges (``RANGE_PREFIX``) around the functions ``targets``
     ((module, name, label) triples), patched in for a profiled step only,
-    so a profile can give their device time."""
+    so a profile can give their device time. A replayed CUDA graph calls
+    none of them, so the step runs op by op (``megakernel._replays``)."""
     from torch.profiler import record_function
 
-    saved = []
+    from pathtracing_tpu_torch.models import megakernel
+
+    saved = [(megakernel, "_replays", megakernel._replays)]
+    megakernel._replays = lambda *args: False
     for mod, name, label in targets:
         orig = getattr(mod, name)
 
@@ -1083,13 +1087,13 @@ def step_fn(engine):
 def timed_render(label, scene, camera, config, card, kernel_names,
                  min_mean=0.05, steps=TIMED_STEPS, ranges=None,
                  engine="megakernel"):
-    """One warm-up step, then ``steps`` steps through the ``engine``'s
-    ``render_step`` with every launch count set to 0 just before and read
-    just after, ``resolve``, and one profiled step (``ranges``: with
-    ``profiler_ranges`` of those targets). The image must be finite with
-    a mean in (``min_mean``, 5). Returns (image, launches); the numbers go
-    to ``RENDERS[label]`` (the wavefront's with its iterations and pool
-    occupancy)."""
+    """A warm-up step (and one taking stats on a state thrown away), then
+    ``steps`` steps through the ``engine``'s ``render_step`` with every
+    launch count set to 0 just before and read just after, ``resolve``,
+    and one profiled step (``ranges``: with ``profiler_ranges`` of those
+    targets). The image must be finite with a mean in (``min_mean``, 5).
+    Returns (image, launches); the numbers go to ``RENDERS[label]`` (the
+    wavefront's with its iterations and pool occupancy)."""
     import torch
 
     from pathtracing_tpu_torch.models import progressive
@@ -1100,6 +1104,11 @@ def timed_render(label, scene, camera, config, card, kernel_names,
     state = step(state, scene, camera, config)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    # Steps that take stats are graphs of their own (``megakernel``):
+    # capture them here, on a state thrown away (the image keeps its
+    # samples), so the timed steps replay as the profiled one does.
+    step(progressive.init_state(config, device=DEVICE), scene, camera,
+         config, stats={})
     stats = {}
     reset_launches()
     t0 = time.perf_counter()

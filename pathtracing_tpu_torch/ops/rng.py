@@ -29,7 +29,8 @@ Two routes, chosen by the device of the input tensor (for ``key``, of
     ``uniform``), ``ld_kernel`` (``ld_scalar``, ``ld_pair``). Python ints
     (seeds, tags, bounces, sample counters) are launch arguments, so no
     entry copies to the card or waits for it. Each launch is a
-    ``rng.launch`` span inside ``shade.rng`` (``utils.metrics``).
+    ``rng.launch`` span inside ``shade.rng`` (``utils.metrics``) and adds
+    one to ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -67,6 +68,8 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 SPAN = "shade.rng"
 # The span of one kernel launch (CUDA tensors), nested in ``SPAN``.
 LAUNCH_SPAN = "rng.launch"
+# Launch counts of the kernels, by kernel (``fold_kernel``, ...).
+LAUNCHES = {"fold": 0, "bits": 0, "ld": 0}
 
 
 # --- The plain version (CPU tensors) ----------------------------------------
@@ -244,6 +247,7 @@ def _launch(fn: str, device, *args) -> None:
     with metrics.span(LAUNCH_SPAN):
         err = getattr(lib, fn)(*args,
                                torch.cuda.current_stream(device).cuda_stream)
+    LAUNCHES[fn[len("ptpu_rng_"):]] += 1
     if err != 0:
         raise RuntimeError(f"{fn} launch failed with CUDA error {err}")
 

@@ -18,12 +18,19 @@ total and self ns (the total less the time its child spans cover), and
 the step's ``host_syncs`` and ``host_wait_ns``. A span opened inside an
 open span of the same name is not recorded again. The records keep to
 the thread that renders.
+
+Inside ``capturing()`` (a CUDA graph capture, ``models.graphs``) a
+blocking host read cannot be recorded: ``host_read`` and ``to_device``
+raise ``CaptureUnsafe`` instead of reading, whether tracing is on or off,
+and no span is recorded. A replayed graph adds the spans of the work it
+ran to the step's counts (``add_spans``), with no time and no record.
 """
 
 from __future__ import annotations
 
 import bisect
 import collections
+import contextlib
 import functools
 import json
 import time
@@ -285,6 +292,39 @@ def traced(name: str):
     return wrap
 
 
+def add_spans(name: str, n: int) -> None:
+    """Counts ``n`` more spans ``name`` in the open step, of no host time
+    and with no record: work that a replayed CUDA graph runs without the
+    host's issue (``models.graphs``)."""
+    t = _tracer
+    if t is None or not t.stack or not n:
+        return
+    agg = t.agg.get(name)
+    if agg is None:
+        agg = t.agg[name] = [0, 0, 0]
+    agg[0] += n
+
+
+class CaptureUnsafe(RuntimeError):
+    """A blocking host read inside ``capturing()``."""
+
+
+_capturing = False
+
+
+@contextlib.contextmanager
+def capturing():
+    """The block is a CUDA graph capture: host reads raise
+    ``CaptureUnsafe``, and no span inside it is recorded (what it issues
+    runs at the replays)."""
+    global _capturing, _tracer
+    saved, _capturing, _tracer = _tracer, True, None
+    try:
+        yield
+    finally:
+        _capturing, _tracer = False, saved
+
+
 def host_read(site: str, fn, *args, syncs: int = 1):
     """``fn(*args)``, the port's one way to make a blocking host read
     (a value read back, a boolean-mask index, a copy from pageable host
@@ -292,7 +332,10 @@ def host_read(site: str, fn, *args, syncs: int = 1):
     Evaluates exactly ``fn(*args)``; with tracing on, inside a step, it
     adds ``syncs`` (the synchronising operations ``fn`` makes) to the
     step's ``host_syncs`` and times the call as the span ``sync.<site>``,
-    the host's wait for the card to drain its queue."""
+    the host's wait for the card to drain its queue. Inside
+    ``capturing()`` it raises ``CaptureUnsafe``."""
+    if _capturing:
+        raise CaptureUnsafe(f"host read {site!r} inside a graph capture")
     t = _tracer
     if t is None:
         return fn(*args)
@@ -312,7 +355,10 @@ def _tensor(data, dtype, device):
 def to_device(site: str, data, dtype, device):
     """``torch.tensor(data, dtype=dtype, device=device)`` through
     ``host_read``: on a CUDA device a copy from pageable host memory,
-    which PyTorch ends with a stream synchronise."""
+    which PyTorch ends with a stream synchronise. Inside ``capturing()``
+    it raises ``CaptureUnsafe``."""
+    if _capturing:
+        raise CaptureUnsafe(f"copy {site!r} inside a graph capture")
     t = _tracer
     if t is None:
         return torch.tensor(data, dtype=dtype, device=device)
